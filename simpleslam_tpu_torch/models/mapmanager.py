@@ -12,12 +12,12 @@ Parity targets (``frontend/src/MapManager.cpp``):
   (:203-213),
 - ``set_cur_pose`` notifies a map update when moved > 1 m (:109-119).
 
-Port of the offline ``MapManager`` of ``simpleslam_tpu/models/mapmanager.py``
-(the device keyframe store of the streamed executor is not ported yet):
-keyframe clouds live as host numpy (they are persistence payloads); the
-submap is assembled on the host and moved to the register's device once per
-update as a padded cloud, where the register builds its target. Keyframe
-NN/radius queries are brute-force numpy.
+Port of ``simpleslam_tpu/models/mapmanager.py``. Keyframe clouds live as
+host numpy (they are persistence payloads). The offline path assembles the
+submap on the host and moves it to the register's device once per update;
+the streamed executor keeps a device copy of every keyframe cloud
+(``enable_device_store``) and rebuilds the target on the device from it.
+Keyframe NN/radius queries are brute-force numpy.
 """
 
 from __future__ import annotations
@@ -125,6 +125,15 @@ class MapManager:
         self._target: Any = None                             # register-built table
         self._set_update = threading.Event()
         self._static_pcd_cloud: Optional[np.ndarray] = None
+        # streamed executor state (enable_device_store / update_map_device)
+        self._kf_store: Optional[torch.Tensor] = None
+        self._pending_target: Any = None
+        self._last_build = None
+        self.n_device_builds = 0
+        # guards the in-place row writes of the device keyframe store
+        # against readers that launch work on it from another thread (the
+        # backend worker's descriptor ingest)
+        self.kf_store_lock = threading.Lock()
 
         if self.is_mapping:
             if self.save_map_dir:
@@ -265,6 +274,137 @@ class MapManager:
     def _host_downsample(self, xyz: np.ndarray) -> np.ndarray:
         """Host-side voxel downsample for persistence-sized clouds (native)."""
         return native.voxel_downsample_first(xyz, self.grid_size)
+
+    # -- device-resident keyframe store (streamed executor) -------------------
+    # Keyframe clouds live on the device so submap rebuilds move only indices
+    # and poses from the host; each cloud is uploaded once at insertion. The
+    # device form of updateMap's keyframe gather (MapManager.cpp:176-192),
+    # with the radius search a brute-force window select on the host.
+    def enable_device_store(self) -> None:
+        if self._kf_store is not None:
+            return
+        self.kf_capacity = int(self.tpu_cfg.get("kf_capacity", 8192))
+        self.kf_window = int(self.tpu_cfg.get("submap_kf_window", 16))
+        if not self.is_mapping:
+            return  # localization mode: static global map, no keyframe store
+        max_kf = int(self.tpu_cfg["max_keyframes"])
+        self._kf_store = torch.full((max_kf, self.kf_capacity, 3),
+                                    pcops.PAD_COORD, dtype=torch.float32,
+                                    device=self.register.device)
+        # preload any reloaded keyframes (resume path)
+        with self.kf_obj.lock:
+            kfs = list(self.kf_obj.keyframes)
+        for i, kf in enumerate(kfs):
+            self.store_keyframe_cloud(i, kf.xyz)
+
+    def store_keyframe_cloud(self, idx: int, xyz: np.ndarray) -> None:
+        """Upload one keyframe cloud into its store row, in place."""
+        row = np.full((self.kf_capacity, 3), pcops.PAD_COORD, np.float32)
+        n = min(len(xyz), self.kf_capacity)
+        row[:n] = xyz[:n]
+        row_t = torch.from_numpy(row).to(self.register.device)
+        with self.kf_store_lock:
+            self._kf_store[idx] = row_t
+
+    # how far the anchor may drift from the last built target's center
+    # before a rebuild is forced even with an unchanged keyframe window: the
+    # dense registration grid spans +-96 m around its anchor while queries
+    # reach lidar range + submap radius (~88 m), leaving ~8 m of coverage
+    # slack — half of it is a safe staleness budget.
+    REBUILD_CENTER_SLACK = 4.0
+
+    def commit_pending_target(self) -> bool:
+        """Swap in a rebuild made with ``defer_swap=True`` (the double-buffer
+        boundary): the executor calls this at the next batch dispatch, so a
+        batch never sees its target change under it."""
+        t = self._pending_target
+        if t is None:
+            return False
+        self._pending_target = None
+        with self._submap_lock:
+            self._submap_pc = None
+            self._target = t
+        return True
+
+    def update_map_device(self, defer_swap: bool = False) -> None:
+        """Submap target rebuild on the device (streamed-path update_map).
+
+        A rebuild is skipped unless one of these holds:
+        - the anchor drifted > REBUILD_CENTER_SLACK from the built target's
+          center (the dense window must keep queries inside it);
+        - a keyframe LEFT the window, or a windowed keyframe's pose changed
+          (a backend correction) — the built points are stale;
+        - the map is young (< 4 keyframes), where every cloud matters.
+        A new keyframe alone does not force a rebuild: its cloud was scanned
+        from inside the current window, so it joins at the next
+        slack-triggered rebuild. The window is the nearest
+        ``submap_kf_window`` keyframes inside the search radius.
+        """
+        self._set_update.clear()
+        if not self.is_mapping:
+            return
+        with self.kf_obj.lock:
+            kfs = list(self.kf_obj.keyframes)
+            # pose snapshot under the lock (see update_map: a mixed-epoch
+            # window during backend write-back must not reach the target)
+            kf_poses = [k.pose for k in kfs]
+        if not kfs:
+            self.lg.warn("no any keyframes to update!!")
+            return
+        pos = np.stack([p[:3, 3] for p in kf_poses])
+        center = self.cur_pose.load()[:3, 3]
+        d2 = np.sum((pos - center) ** 2, axis=1)
+        sel = np.where(d2 <= SURROUNDING_KF_SEARCH_RADIUS ** 2)[0]
+        if len(sel) > self.kf_window:  # nearest-W if the window overflows
+            sel = sel[np.argsort(d2[sel])[: self.kf_window]]
+        slack = float(self.tpu_cfg.get("map_rebuild_slack_m",
+                                       self.REBUILD_CENTER_SLACK))
+        last = self._last_build
+        if (last is not None and self._target is not None and slack > 0
+                and len(kfs) >= 4):
+            old_sel, old_poses, old_center = last
+            sel_set = set(int(i) for i in sel)
+            none_left = all(int(i) in sel_set for i in old_sel)
+            # pose drift below the registration noise floor (5 cm trans /
+            # ~0.1 deg rot) does not materially move target points
+            poses_same = none_left and all(
+                np.linalg.norm(kf_poses[int(i)][:3, 3]
+                               - old_poses[k][:3, 3]) < 0.05
+                and np.abs(kf_poses[int(i)][:3, :3]
+                           - old_poses[k][:3, :3]).max() < 2e-3
+                for k, i in enumerate(old_sel))
+            if (poses_same
+                    and np.linalg.norm(center - old_center) < slack):
+                with self.kf_obj.lock:  # bookkeeping still tracks the window
+                    self.kf_obj.submap_idx = set(sel_set)
+                return
+        self._last_build = (
+            np.asarray(sel).copy(),
+            np.stack([kf_poses[int(i)] for i in sel]) if len(sel)
+            else np.zeros((0, 4, 4)),
+            center.copy())
+        self.n_device_builds += 1
+        w = self.kf_window
+        idx = np.zeros(w, np.int64)
+        poses = np.tile(np.eye(4, dtype=np.float32), (w, 1, 1))
+        maskw = np.zeros(w, bool)
+        for k, i in enumerate(sel):
+            idx[k] = i
+            poses[k] = kf_poses[i].astype(np.float32)
+            maskw[k] = True
+        target = self.register.build_target_from_window(
+            self._kf_store, idx, poses, maskw,
+            center.astype(np.float32), self.grid_size)
+        with self.kf_obj.lock:
+            self.kf_obj.submap_idx = set(int(i) for i in sel)
+        if defer_swap:
+            # double buffer: registration keeps the current target until the
+            # executor commits at its next batch boundary
+            self._pending_target = target
+            return
+        with self._submap_lock:
+            self._submap_pc = None
+            self._target = target
 
     # -- accessors ------------------------------------------------------------
     def is_submap_empty(self) -> bool:

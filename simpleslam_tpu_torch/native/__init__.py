@@ -1,8 +1,9 @@
 """ctypes loader for the C++ host helpers, with a reported numpy fallback.
 
 The host helpers (NaN-strip + padding, first-point voxel downsample of
-keyframe clouds, submap transform + concat) share one C++ source with the
-reference package, ``simpleslam_tpu/native/hostops.cpp``. It is read as a
+keyframe clouds, submap transform + concat, and the streamed executor's
+downsample + spatial sort + int16 quantization of scan batches) share one
+C++ source with the reference package, ``simpleslam_tpu/native/hostops.cpp``. It is read as a
 file and compiled with g++ at first use into ``simpleslam_tpu_torch/build/``,
 under a name keyed by the source's hash, so both packages run the same host
 code. These are host-only helpers, not device kernels: where no compiler is
@@ -60,6 +61,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.pad_cloud.argtypes = [f32p, i64, i64, ctypes.c_float, f32p, u8p]
     lib.transform_concat.restype = i64
     lib.transform_concat.argtypes = [f32p, i64p, f32p, i64, f32p]
+    lib.voxel_downsample_sort_quant_batch.restype = None
+    lib.voxel_downsample_sort_quant_batch.argtypes = [
+        f32p, i64p, i64, ctypes.c_float, i64, i64, ctypes.c_float,
+        ctypes.c_float, ctypes.POINTER(ctypes.c_int16), i64p, i64]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -160,3 +165,73 @@ def transform_concat(clouds: list, poses: np.ndarray) -> np.ndarray:
         _fp(flat), counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
         _fp(pose_arr), len(clouds), _fp(out))
     return out
+
+
+def _centroids_first_seen(xyz: np.ndarray, grid: float, capacity: int,
+                          max_pts: int) -> np.ndarray:
+    """numpy form of the C++ ``voxel_downsample_centroid_pad`` without the
+    padding: f32 sums of each voxel's first ``max_pts`` finite points in
+    input order, voxels in first-seen order, stride-subsampled past
+    ``capacity``."""
+    xyz = xyz[np.isfinite(xyz).all(axis=1)]
+    if len(xyz) == 0:
+        return xyz
+    keys = np.floor(xyz * (np.float32(1.0) / np.float32(grid))).astype(np.int64)
+    _, first, vid = np.unique(keys, axis=0, return_index=True,
+                              return_inverse=True)
+    vid = vid.reshape(-1)
+    order = np.argsort(vid, kind="stable")
+    starts = np.searchsorted(vid[order], np.arange(len(first)))
+    rank = np.empty(len(vid), np.int64)
+    rank[order] = np.arange(len(vid)) - starts[vid[order]]
+    take = rank < max_pts
+    sums = np.zeros((len(first), 3), np.float32)
+    np.add.at(sums, vid[take], xyz[take])   # unbuffered: input order, in f32
+    cnt = np.bincount(vid[take], minlength=len(first)).astype(np.float32)
+    cents = (sums * (np.float32(1.0) / cnt)[:, None])[np.argsort(first)]
+    nv = len(cents)
+    if nv > capacity:
+        cents = cents[np.arange(capacity) * nv // capacity]
+    return cents
+
+
+def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
+                                      sort_grid: float, quant_scale: float,
+                                      max_pts: int = 20):
+    """The streamed producer's prep of a chunk of scans in one GIL-released
+    call: centroid downsample, spatial sort by voxel key at ``sort_grid``,
+    and int16 quantization at ``quant_scale`` metres per count (returns
+    beyond +-32766 counts are dropped, 32767 pads).
+
+    Returns ((B, capacity, 3) int16, (B,) int64 valid counts).
+    """
+    b = len(scans)
+    flat = [_f32c(np.asarray(s).reshape(-1, 3)) for s in scans]
+    lib = _load()
+    out = np.full((b, capacity, 3), np.int16(32767), np.int16)
+    counts_out = np.zeros(b, np.int64)
+    if lib is None:
+        inv_s = np.float32(1.0) / np.float32(sort_grid) if sort_grid > 0 else 0
+        qinv = np.float32(1.0) / np.float32(quant_scale)
+        for k, xyz in enumerate(flat):
+            pts = _centroids_first_seen(xyz, grid, capacity, max_pts)
+            if sort_grid > 0 and len(pts) > 1:
+                v = np.floor(pts * inv_s).astype(np.int64) + (1 << 20)
+                key = (v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2]
+                pts = pts[np.argsort(key, kind="stable")]
+            q = np.rint(pts * qinv)
+            q = q[np.all(np.abs(q) <= 32766, axis=1)]
+            out[k, : len(q)] = q.astype(np.int16)
+            counts_out[k] = len(q)
+        return out, counts_out
+    concat = (np.concatenate(flat, axis=0) if flat
+              else np.zeros((0, 3), np.float32))
+    counts = np.asarray([len(f) for f in flat], np.int64)
+    threads = max(1, (os.cpu_count() or 2) - 1)
+    lib.voxel_downsample_sort_quant_batch(
+        _fp(concat), counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), b,
+        ctypes.c_float(grid), max_pts, capacity, ctypes.c_float(sort_grid),
+        ctypes.c_float(quant_scale),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+        counts_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), threads)
+    return out, counts_out

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from .linalg3 import solve3x3
+
 _EPS = 1e-6
 
 
@@ -128,12 +130,16 @@ def se3_exp(k: torch.Tensor) -> torch.Tensor:
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
-    """SE(3) log: (..., 4, 4) -> (..., 6) twist [rho, w]."""
+    """SE(3) log: (..., 4, 4) -> (..., 6) twist [rho, w].
+
+    rho = V^-1 t by Cramer's rule (V is well conditioned below a full
+    turn): unlike ``torch.linalg.solve`` it stays finite under
+    ``vmap(jacfwd(...))``, which returns NaN tangents for a batch of
+    identical systems (the pose graph's padding edges)."""
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     w = so3_log(R)
-    V = _so3_left_jacobian(w)
-    rho = torch.linalg.solve(V, t[..., None])[..., 0]
+    rho, _ = solve3x3(_so3_left_jacobian(w), t)
     return torch.cat([rho, w], dim=-1)
 
 

@@ -1,9 +1,10 @@
 """Closed-form batched 3x3 symmetric eigensolve on torch tensors.
 
-Port of ``simpleslam_tpu/ops/linalg3.py`` (``symeig3x3_values``,
-``_eigvec_for``, ``symeig3x3_smallest``): the plane fit's per-query scatter
-eigenproblem as elementwise math. The CUDA kernel ``fit_and_linearize_merged``
-(``csrc/loam_kernels.cu``) computes the same formulas per query.
+Port of ``simpleslam_tpu/ops/linalg3.py``: the plane fit's per-query
+scatter eigenproblem (``symeig3x3_smallest``), the full eigendecomposition
+behind VGICP's covariance regularization (``symeig3x3``) and Cramer's-rule
+solves, all as elementwise math. The CUDA kernel ``fit_and_linearize_merged``
+(``csrc/loam_kernels.cu``) computes the plane-fit formulas per query.
 """
 
 from __future__ import annotations
@@ -12,6 +13,34 @@ import math
 from typing import Tuple
 
 import torch
+
+
+def solve3x3(A: torch.Tensor, b: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched Cramer's-rule solve. Returns (x, ok) — ok flags a usable det.
+
+    Only appropriate for well-scaled matrices (f32 determinant).
+    """
+    a00, a01, a02 = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    a10, a11, a12 = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    a20, a21, a22 = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = a11 * a22 - a12 * a21
+    c01 = a12 * a20 - a10 * a22
+    c02 = a10 * a21 - a11 * a20
+    det = a00 * c00 + a01 * c01 + a02 * c02
+    scale = torch.amax(torch.abs(A), dim=(-1, -2))
+    ok = torch.abs(det) > 1e-7 * torch.clamp(scale, min=1e-12) ** 3
+    det_safe = torch.where(ok, det, torch.ones_like(det))
+    c10 = a02 * a21 - a01 * a22
+    c11 = a00 * a22 - a02 * a20
+    c12 = a01 * a20 - a00 * a21
+    c20 = a01 * a12 - a02 * a11
+    c21 = a02 * a10 - a00 * a12
+    c22 = a00 * a11 - a01 * a10
+    x0 = (c00 * b[..., 0] + c10 * b[..., 1] + c20 * b[..., 2]) / det_safe
+    x1 = (c01 * b[..., 0] + c11 * b[..., 1] + c21 * b[..., 2]) / det_safe
+    x2 = (c02 * b[..., 0] + c12 * b[..., 1] + c22 * b[..., 2]) / det_safe
+    return torch.stack([x0, x1, x2], dim=-1), ok
 
 
 def symeig3x3_values(M: torch.Tensor) -> torch.Tensor:
@@ -82,3 +111,27 @@ def symeig3x3_smallest(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(eigenvalues ascending (..., 3), unit eigenvector of the smallest)."""
     lam = symeig3x3_values(M)
     return lam, _eigvec_for(M, lam[..., 1], lam[..., 2])
+
+
+def symeig3x3(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full symmetric eigendecomposition: (eigenvalues ascending, eigenvectors
+    (..., 3, 3) with matching columns). Assumes reasonably separated
+    spectra; a degenerate second vector is replaced by one orthogonal to the
+    first, as in the reference."""
+    lam = symeig3x3_values(M)
+    v0 = _eigvec_for(M, lam[..., 1], lam[..., 2])
+    v2 = _eigvec_for(M, lam[..., 0], lam[..., 1])
+    v2 = v2 - torch.sum(v2 * v0, dim=-1, keepdim=True) * v0
+    n2 = torch.linalg.norm(v2, dim=-1, keepdim=True)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=M.dtype,
+                      device=M.device).expand_as(v0)
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=M.dtype,
+                      device=M.device).expand_as(v0)
+    alt = torch.linalg.cross(v0, ex)
+    alt = torch.where(torch.linalg.norm(alt, dim=-1, keepdim=True) > 0.1, alt,
+                      torch.linalg.cross(v0, ey))
+    alt = alt / torch.clamp(torch.linalg.norm(alt, dim=-1, keepdim=True),
+                            min=1e-20)
+    v2 = torch.where(n2 > 1e-6, v2 / torch.clamp(n2, min=1e-20), alt)
+    v1 = torch.linalg.cross(v2, v0)
+    return lam, torch.stack([v0, v1, v2], dim=-1)

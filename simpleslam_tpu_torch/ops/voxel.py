@@ -1,7 +1,9 @@
-"""Voxel-grid machinery on torch tensors: downsampling and the merged dense
-voxel map that LOAM registers against.
+"""Voxel-grid machinery on torch tensors: downsampling, the merged dense
+voxel map that LOAM registers against, and the dense point and Gaussian
+maps that VGICP verifies loop closures with.
 
-Port of the main-path subset of ``simpleslam_tpu/ops/voxel.py``. Every
+Port of the dense-grid part of ``simpleslam_tpu/ops/voxel.py`` (the
+sorted-table ``VoxelMap`` of the sharded path is not ported). Every
 reduction here runs in a fixed order with static shapes: segments come from a
 stable sort plus ``searchsorted`` on the sorted keys (no ``unique``, no
 boolean indexing, so no hidden host sync), and each voxel's sum is taken over
@@ -180,6 +182,48 @@ def build_dense_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
                          grid, dims, slab_size)
 
 
+def _neighbor_offsets(radius: int, device) -> torch.Tensor:
+    r = range(-radius, radius + 1)
+    return torch.tensor([(x, y, z) for x in r for y in r for z in r],
+                        dtype=torch.int32, device=device)
+
+
+def _rows_to_points(rows: torch.Tensor, slab_pts: int):
+    """(..., M*3) flat rows -> ((..., M, 3) points, (..., M) validity), the
+    validity read from the PAD_COORD sentinel."""
+    pts = rows.reshape(*rows.shape[:-1], slab_pts, 3)
+    return pts, pts[..., 0] < 0.5 * PAD_COORD
+
+
+def gather_neighbors_dense(dm: DenseVoxelMap, queries: torch.Tensor,
+                           q_mask: torch.Tensor, radius: int = 1
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-radius candidate gather from the dense grid (no key search):
+    queries (Q, 3) -> (candidates (Q, K*M, 3), validity (Q, K*M))."""
+    offs = _neighbor_offsets(radius, queries.device)           # (K, 3)
+    c = torch.floor((queries - dm.corner) / dm.grid).to(torch.int32)
+    nc = c[:, None, :] + offs[None, :, :]                       # (Q, K, 3)
+    flat = _dense_flat(nc, dm.dims, q_mask[:, None])            # (Q, K)
+    pts, valid = _rows_to_points(dm.slab[flat], dm.slab_pts)
+    q_, k_, m = pts.shape[0], pts.shape[1], dm.slab_pts
+    return pts.reshape(q_, k_ * m, 3), valid.reshape(q_, k_ * m)
+
+
+def knn_dense(dm: DenseVoxelMap, queries: torch.Tensor, q_mask: torch.Tensor,
+              k: int, radius: int = 1
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """k nearest neighbours from the dense grid neighbourhood: (sq_dists
+    (Q, k), neighbours (Q, k, 3), valid (Q, k)). Ties go to the lower
+    candidate index, as the reference's ``top_k`` does."""
+    cand, valid = gather_neighbors_dense(dm, queries, q_mask, radius)
+    d2 = torch.sum((cand - queries[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    sq, idx = torch.sort(d2, dim=1, stable=True)
+    sq, idx = sq[:, :k], idx[:, :k]
+    nbrs = torch.gather(cand, 1, idx[:, :, None].expand(-1, -1, 3))
+    return sq, nbrs, torch.isfinite(sq)
+
+
 # int16 quantization of merged rows, corner-relative: a position is stored
 # as round((p - corner) / scale) - 2^14 with scale = extent / 32767 (about
 # 5.9 mm over a 192 m window); 32767 marks padding.
@@ -277,3 +321,92 @@ def gather_neighbors_merged(mm: MergedDenseVoxelMap, queries: torch.Tensor,
                         mm.scale)
     pts = torch.where(valid[..., None], pts, torch.full_like(pts, PAD_COORD))
     return pts, valid
+
+
+# ---------------------------------------------------------------------------
+# Dense Gaussian voxel map (the VGICP target)
+# ---------------------------------------------------------------------------
+
+
+class DenseGaussianVoxelMap(NamedTuple):
+    """Dense grid of Gaussian moments; row G is the zeroed padding sentinel."""
+
+    means: torch.Tensor   # (G+1, 3)
+    covs: torch.Tensor    # (G+1, 3, 3)
+    counts: torch.Tensor  # (G+1,) int32
+    corner: torch.Tensor  # (3,)
+    grid: torch.Tensor    # ()
+    dims: Tuple[int, int, int]
+
+
+def build_dense_gaussian_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
+                                   dims: Tuple[int, int, int]
+                                   ) -> DenseGaussianVoxelMap:
+    """Per-voxel Gaussian moments (mean, E[x x^T] - mean mean^T) in a dense
+    window centred at ``center``.
+
+    Points are sorted by voxel id; each occupied voxel sums its points in
+    sorted order by a loop over ranks (no float atomics, so the map repeats
+    bit for bit on the GPU), and the per-voxel moments are then written to
+    their dense rows. The loop bound is the largest in-window voxel
+    occupancy, read once to the host; the padding and out-of-window points
+    share the sentinel row, whose moments are zeroed.
+    """
+    dev = pc.xyz.device
+    grid = torch.as_tensor(grid, dtype=pc.xyz.dtype, device=dev)
+    gx, gy, gz = dims
+    g_total = gx * gy * gz
+    dims_t = torch.tensor([gx, gy, gz], dtype=pc.xyz.dtype, device=dev)
+    corner = center - dims_t * grid / 2.0
+    c = torch.floor((pc.xyz - corner) / grid).to(torch.int32)
+    flat = _dense_flat(c, dims, pc.mask)
+    flat_s, order = torch.sort(flat, stable=True)
+    mask_s = pc.mask[order]
+    xyz = torch.where(mask_s[:, None], pc.xyz[order], torch.zeros_like(pc.xyz))
+    outer = (xyz[:, :, None] * xyz[:, None, :]).reshape(-1, 9)
+    n = flat_s.shape[0]
+    prev = torch.cat([flat_s.new_full((1,), -1), flat_s[:-1]])
+    seg_id = torch.cumsum((flat_s != prev).to(torch.int32), 0,
+                          dtype=torch.int32) - 1
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    start = torch.searchsorted(seg_id, ids)
+    count = torch.searchsorted(seg_id, ids, right=True) - start
+    last = n - 1
+    # empty segment slots and the out-of-window segment land on the sentinel
+    vox = torch.where(count > 0, flat_s[torch.clamp(start, max=last)],
+                      torch.full_like(flat_s, g_total)).to(torch.int64)
+    sums = torch.zeros_like(xyz)
+    sums2 = torch.zeros_like(outer)
+    n_iter = int(torch.amax(torch.where(vox < g_total, count,
+                                        torch.zeros_like(count))))
+    for r in range(n_iter):
+        sel = torch.clamp(start + r, max=last)
+        take = (r < count)[:, None]
+        sums = sums + torch.where(take, xyz[sel], torch.zeros_like(sums))
+        sums2 = sums2 + torch.where(take, outer[sel], torch.zeros_like(sums2))
+    cnt = torch.clamp(count, min=1).to(sums.dtype)
+    means_s = sums / cnt[:, None]
+    covs_s = sums2.reshape(n, 3, 3) / cnt[:, None, None] \
+        - means_s[:, :, None] * means_s[:, None, :]
+    means = torch.zeros((g_total + 1, 3), dtype=xyz.dtype, device=dev)
+    covs = torch.zeros((g_total + 1, 3, 3), dtype=xyz.dtype, device=dev)
+    counts = torch.zeros((g_total + 1,), dtype=torch.int32, device=dev)
+    means[vox] = means_s
+    covs[vox] = covs_s
+    counts[vox] = count.to(torch.int32)
+    means[g_total] = 0.0
+    covs[g_total] = 0.0
+    counts[g_total] = 0
+    return DenseGaussianVoxelMap(means, covs, counts, corner, grid, dims)
+
+
+def gather_gaussians_dense(dgm: DenseGaussianVoxelMap, queries: torch.Tensor,
+                           q_mask: torch.Tensor, offsets: torch.Tensor,
+                           min_points: int = 6):
+    """Dense-index Gaussian lookup at ``queries`` + ``offsets`` (K, 3):
+    -> (means (Q, K, 3), covs (Q, K, 3, 3), valid (Q, K), flat_idx (Q, K))."""
+    c = torch.floor((queries - dgm.corner) / dgm.grid).to(torch.int32)
+    nc = c[:, None, :] + offsets[None, :, :]
+    flat = _dense_flat(nc, dgm.dims, q_mask[:, None])
+    valid = dgm.counts[flat] >= min_points
+    return dgm.means[flat], dgm.covs[flat], valid, flat

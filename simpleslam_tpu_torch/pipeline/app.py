@@ -1,11 +1,13 @@
 """Offline replay harness — the framework's ``app/main.cpp``, in PyTorch.
 
-Port of ``simpleslam_tpu/pipeline/app.py`` for the lo-mode slice: the object
-graph (frontend, map manager, lidar odometry, LOAM register) and the
-deterministic scan-by-scan replay of a ``SensorStreams`` bundle, with map
-updates run inline at their event points. The pose-graph backend, loop
-closure, lio mode and the visualizer are not ported yet: a config that asks
-for them is refused, never run as a reduced pipeline.
+Port of ``simpleslam_tpu/pipeline/app.py`` for lo mode: the object graph
+(frontend, map manager, lidar odometry, LOAM register, pose-graph backend,
+loop closure) and the deterministic scan-by-scan replay of a
+``SensorStreams`` bundle, with map updates and backend passes run inline at
+their event points; ``main --streamed`` drives ``pipeline/streamed.py``
+instead. lio mode, NDT/VGICP odometry, the visualizer and multi-device runs
+are not ported yet: a config that asks for them is refused, never run as a
+reduced pipeline.
 """
 
 from __future__ import annotations
@@ -41,10 +43,10 @@ def _check_ported(cfg: dict) -> None:
         raise NotImplementedError(
             "mode 'lio' is not ported to simpleslam_tpu_torch yet "
             "(ROADMAP item 9); use mode 'lo'")
-    if cfg["backend"].get("enable", True):
+    if int(cfg["tpu"].get("mesh_devices", 0)):
         raise NotImplementedError(
-            "the pose-graph backend is not ported to simpleslam_tpu_torch yet "
-            "(ROADMAP item 7); set backend.enable to false")
+            "multi-device execution (tpu.mesh_devices > 0) is not ported to "
+            "simpleslam_tpu_torch yet (ROADMAP item 12); set it to 0")
     if cfg["vis"].get("enable", False):
         raise NotImplementedError(
             "the visualizer is not ported to simpleslam_tpu_torch yet "
@@ -68,17 +70,43 @@ class SlamSystem:
         self.lidar_odometry = LidarOdometry(self.frontend, self.map_manager,
                                             self.register)
 
+        self.backend = None
+        self.loop_closure = None
+        if cfg["backend"].get("enable", True):
+            from ..models.backend import Backend
+
+            lcm = None
+            if cfg["backend"]["lc"]["enable"]:
+                from ..models.loopclosure import LoopClosureManager
+
+                lcm = LoopClosureManager(self.map_manager)
+            self.loop_closure = lcm
+            self.backend = Backend(self.frontend, self.map_manager, lcm)
+
+    def prewarm(self) -> None:
+        """Run the event-driven device work (the pose-graph solves at the
+        current bucket sizes, the loop-closure verification chain) once
+        before the stream, so its first-call costs never stall it."""
+        if self.backend is not None:
+            self.backend.prewarm()
+        if self.loop_closure is not None:
+            self.loop_closure.prewarm()
+
     def shutdown(self) -> None:
-        """Save artifacts (MapManager semantics with the backend off)."""
-        self.map_manager.save_trajectory()
-        self.map_manager.save_kfs()
+        """Save artifacts (Backend dtor + MapManager semantics)."""
+        if self.backend is not None:
+            self.backend.save()
+        else:
+            self.map_manager.save_trajectory()
+            self.map_manager.save_kfs()
 
 
 def run_offline(system: SlamSystem, streams: sim.SensorStreams,
                 progress: bool = False) -> SlamResult:
     """Deterministic replay of one sequence (bag-mode semantics): each scan
-    runs the full odometry step, and a pending map update runs right after
-    it, as the reference's map thread would."""
+    runs the full odometry step; a pending map update, then a pending
+    backend pass and the loop-closure turn, run right after it, as the
+    reference's map and backend threads would."""
     lg = Logger.get_instance()
     timers = StageTimers()
     tt_all = TicToc()
@@ -97,6 +125,18 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
             tt.tic()
             system.map_manager.update_map()
             timers.add("map_update", tt.toc())
+        if (system.backend is not None
+                and system.map_manager.kf_obj.is_event_coming()):
+            tt.tic()
+            system.backend.optim_once()
+            timers.add("backend", tt.toc())
+            # the LC thread's synchronous turn: detect on the contexts the
+            # backend just added, then let the backend consume the LC event
+            if system.loop_closure is not None:
+                tt.tic()
+                if system.loop_closure.lc_handler_once():
+                    system.backend.optim_once()
+                timers.add("loop_closure", tt.toc())
         if progress and si % 50 == 0:
             lg.info("scan %d/%d", si, len(scan_stamps))
 
@@ -119,7 +159,7 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """CLI: synthetic end-to-end run of the lo-mode LOAM slice."""
+    """CLI: synthetic end-to-end run (offline replay, or ``--streamed``)."""
     import argparse
 
     ap = argparse.ArgumentParser(description="simpleslam_tpu_torch offline replay")
@@ -129,6 +169,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--scans", type=int, default=120)
     ap.add_argument("--mode", default=None, choices=[None, "lo", "lio"])
     ap.add_argument("--pcr", default=None, choices=[None, "loam", "ndt", "vgicp"])
+    ap.add_argument("--streamed", action="store_true",
+                    help="use the streamed executor (device-resident pose "
+                         "chain, K-scan batches)")
     ap.add_argument("--out", default=None, help="map save dir")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -147,7 +190,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     world = sim.make_world(seed=args.seed)
     streams = sim.simulate_sequence(world, n_scans=args.scans, seed=args.seed)
     system = SlamSystem()
-    result = run_offline(system, streams, progress=True)
+    system.prewarm()
+    if args.streamed:
+        from .streamed import run_streamed
+
+        result = run_streamed(system, streams, progress=True)
+    else:
+        result = run_offline(system, streams, progress=True)
     system.shutdown()
 
     ate = sim.ate_rmse(streams.gt_poses, result.poses)

@@ -1,10 +1,10 @@
-"""Persistence: TUM trajectories and PCD point clouds.
+"""Persistence: TUM trajectories, PCD point clouds, g2o factor graphs.
 
-Port of the offline slice's part of ``simpleslam_tpu/utils/fileio.py``
-(the g2o factor graph comes with the backend). Format-compatible with the
+Port of ``simpleslam_tpu/utils/fileio.py``. Format-compatible with the
 reference and with the reference package, so maps can be exchanged:
 - ``tum.txt``       keyframe trajectory    (common/utils/File.hpp:25-95)
 - ``{i}.pcd``       per-keyframe clouds    (frontend/src/MapManager.cpp:203-213)
+- ``fg.g2o``        factor graph           (backend/src/Backend.cpp:125-222)
 
 All readers/writers are numpy host-side (IO never sits on the device path).
 PCD support covers the subset the reference produces/consumes via PCL:
@@ -69,6 +69,12 @@ def load_tum(dir_or_path: str) -> Tuple[np.ndarray, np.ndarray]:
     poses[:, :3, :3] = R
     poses[:, :3, 3] = t
     return stamps, poses
+
+
+def remove_tum(dir_or_path: str) -> None:
+    path = _tum_path(dir_or_path)
+    if os.path.exists(path):
+        os.remove(path)
 
 
 def _tum_path(dir_or_path: str) -> str:
@@ -171,3 +177,92 @@ def load_pcd(path: str) -> Tuple[np.ndarray, np.ndarray]:
         inten = np.zeros((n,), dtype=np.float32)
     return xyz, inten
 
+
+
+# ---------------------------------------------------------------------------
+# g2o factor-graph files (VERTEX_SE3:QUAT / EDGE_SE3:QUAT)
+# ---------------------------------------------------------------------------
+
+def _quats(poses: np.ndarray) -> np.ndarray:
+    """(K, 4, 4) -> (K, 4) (w, x, y, z), computed in f64."""
+    R = torch.as_tensor(np.asarray(poses, np.float64).reshape(-1, 4, 4)[:, :3, :3])
+    return geo.rot_to_quat(R).numpy()
+
+
+def _rot(q_wxyz) -> np.ndarray:
+    return geo.quat_to_rot(torch.as_tensor(np.asarray(q_wxyz, np.float64))).numpy()
+
+
+def write_g2o(path: str, poses: np.ndarray,
+              edges: List[Tuple[int, int, np.ndarray, np.ndarray]]) -> None:
+    """Write VERTEX_SE3:QUAT lines for poses (K, 4, 4) and EDGE_SE3:QUAT
+    lines for ``edges`` (i, j, between pose (4, 4), info (6, 6)), the
+    information matrix in g2o order (translation block first) as its upper
+    triangle. Quaternions are computed in f64 (the reference package's in
+    f32); both print 9 decimals."""
+    poses = np.asarray(poses)
+    with open(path, "w") as f:
+        for k, (pose, q) in enumerate(zip(poses, _quats(poses))):
+            t = pose[:3, 3]
+            w, x, y, z = q
+            f.write(
+                f"VERTEX_SE3:QUAT {k} {t[0]:.9f} {t[1]:.9f} {t[2]:.9f} "
+                f"{x:.9f} {y:.9f} {z:.9f} {w:.9f}\n"
+            )
+        for i, j, bt, info in edges:
+            bt = np.asarray(bt)
+            info = np.asarray(info)
+            t = bt[:3, 3]
+            w, x, y, z = _quats(bt)[0]
+            upper = " ".join(
+                f"{info[r, c]:.9f}" for r in range(6) for c in range(r, 6)
+            )
+            f.write(
+                f"EDGE_SE3:QUAT {i} {j} {t[0]:.9f} {t[1]:.9f} {t[2]:.9f} "
+                f"{x:.9f} {y:.9f} {z:.9f} {w:.9f} {upper}\n"
+            )
+
+
+def load_g2o(path: str) -> Tuple[np.ndarray, List[Tuple[int, int, np.ndarray, np.ndarray]]]:
+    """Read VERTEX_SE3:QUAT / EDGE_SE3:QUAT -> (poses (K, 4, 4), edges list),
+    information matrices in g2o order (translation first)."""
+    vertices: Dict[int, np.ndarray] = {}
+    edges: List[Tuple[int, int, np.ndarray, np.ndarray]] = []
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if not parts:
+                continue
+            tag = parts[0]
+            if tag == "VERTEX_SE3:QUAT":
+                idx = int(parts[1])
+                tx, ty, tz, qx, qy, qz, qw = (float(v) for v in parts[2:9])
+                pose = np.eye(4)
+                pose[:3, :3] = _rot([qw, qx, qy, qz])
+                pose[:3, 3] = (tx, ty, tz)
+                vertices[idx] = pose
+            elif tag == "EDGE_SE3:QUAT":
+                i, j = int(parts[1]), int(parts[2])
+                tx, ty, tz, qx, qy, qz, qw = (float(v) for v in parts[3:10])
+                bt = np.eye(4)
+                bt[:3, :3] = _rot([qw, qx, qy, qz])
+                bt[:3, 3] = (tx, ty, tz)
+                vals = [float(v) for v in parts[10:31]]
+                info = np.zeros((6, 6))
+                k = 0
+                for r in range(6):
+                    for c in range(r, 6):
+                        info[r, c] = info[c, r] = vals[k]
+                        k += 1
+                edges.append((i, j, bt, info))
+    if vertices:
+        poses = np.tile(np.eye(4), (max(vertices) + 1, 1, 1))
+        for idx, pose in vertices.items():
+            poses[idx] = pose
+    else:
+        poses = np.zeros((0, 4, 4))
+    return poses, edges
+
+
+def is_file(path: str) -> bool:
+    return os.path.isfile(path)

@@ -1,7 +1,8 @@
 """The PyTorch port as a package: it stands alone (no jax, no triton, no
 reference package), copies the simulator and config schema exactly, refuses
-the parts it has not ported, reports which host-helper path it runs, and
-its GPU smoke script fails cleanly where there is no GPU."""
+the parts it has not ported, runs its CLI (offline and streamed, backend and
+loop closure on), reports which host-helper path it runs, and its GPU smoke
+script fails cleanly where there is no GPU."""
 
 import copy
 import os
@@ -22,6 +23,16 @@ from simpleslam_tpu_torch.utils.config import Params as TParams
 from simpleslam_tpu_torch.utils.logging import Logger as TLogger
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The suite runs several workers on a few cores: two torch threads a
+    worker keeps them from oversubscribing the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
@@ -73,20 +84,37 @@ def test_config_schema_is_the_reference_one_plus_the_device_key():
 
 
 @pytest.mark.parametrize("cfg,item", [
-    ({"backend": {"enable": True}}, "item 7"),
+    ({"tpu": {"mesh_devices": 2}}, "item 12"),
     ({"mode": "lio", "backend": {"enable": False}}, "item 9"),
     ({"backend": {"enable": False}, "frontend": {"pcr": "ndt"}}, "item 10"),
     ({"backend": {"enable": False}, "frontend": {"pcr": "vgicp"}}, "item 10"),
     ({"backend": {"enable": False}, "vis": {"enable": True}}, "item 11"),
-], ids=["backend", "lio", "ndt", "vgicp", "vis"])
+], ids=["mesh", "lio", "ndt", "vgicp", "vis"])
 def test_unported_parts_are_refused(cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tapp.SlamSystem(dict(cfg, torch={"device": "cpu"}))
 
 
 def test_cli_refuses_backend_config(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        tapp.main(["--synthetic", "--scans", "2", "--out", str(tmp_path)])
+    """The backend runs now; its sharded form does not, and the CLI says so."""
+    cfg = tmp_path / "mesh.json"
+    cfg.write_text('{"torch": {"device": "cpu"}, "tpu": {"mesh_devices": 2}}')
+    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        tapp.main(["--synthetic", "--config", str(cfg), "--scans", "2",
+                   "--out", str(tmp_path)])
+
+
+def test_cli_streamed_run_with_backend_and_loop_closure(tmp_path, capsys):
+    cfg = tmp_path / "full.json"
+    cfg.write_text('{"torch": {"device": "cpu"}, "tpu": {"scan_capacity": '
+                   '8192}, "backend": {"enable": true, "lc": {"enable": '
+                   'true}}}')
+    out = tmp_path / "map"
+    assert tapp.main(["--synthetic", "--streamed", "--config", str(cfg),
+                      "--scans", "12", "--out", str(out)]) == 0
+    for name in ("fg.g2o", "tum.txt", "0.pcd"):
+        assert (out / name).is_file(), name
+    assert "dispatch" in capsys.readouterr().out
 
 
 def test_cli_synthetic_run(tmp_path, capsys):
@@ -128,7 +156,8 @@ def test_native_fallback_is_reported_not_silent(monkeypatch, caplog):
 
 
 @pytest.mark.parametrize("fn", ["voxel_downsample_first", "pad_cloud",
-                                "transform_concat"])
+                                "transform_concat",
+                                "voxel_downsample_sort_quant_batch"])
 def test_native_paths_agree(fn, monkeypatch):
     """Deviation from the reference loader: its numpy fallback of
     ``voxel_downsample_first`` kept NaN rows and keyed voxels by
@@ -144,6 +173,10 @@ def test_native_paths_agree(fn, monkeypatch):
         "pad_cloud": lambda: native.pad_cloud(xyz, 8192, 1e6),
         "transform_concat": lambda: native.transform_concat(
             [xyz[:100], xyz[200:260]], np.stack([pose, np.eye(4)])),
+        # capacity 2048 < the voxel count: the stride subsample runs too
+        "voxel_downsample_sort_quant_batch":
+            lambda: native.voxel_downsample_sort_quant_batch(
+                [xyz, xyz[:700] * 4.0], 0.5, 2048, 2.0, 0.01),
     }
     cpp = calls[fn]()
     monkeypatch.setattr(native, "_load", lambda: None)

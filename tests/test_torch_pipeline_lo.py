@@ -10,6 +10,7 @@ assertion allows twice that.
 
 import numpy as np
 import pytest
+import torch
 
 from simpleslam_tpu.pipeline import app as japp
 from simpleslam_tpu.pipeline import simulate as sim
@@ -22,6 +23,16 @@ from simpleslam_tpu_torch.utils.logging import Logger as TLogger
 CFG = {"mode": "lo", "backend": {"enable": False},
        "tpu": {"scan_capacity": 16384}}
 MAX_GAP_M = 0.025
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The suite runs several workers on a few cores: two torch threads a
+    worker keeps them from oversubscribing the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
