@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA GPU.
 
-    python3 chip_smoke.py [--scans N]
+    python3 chip_smoke.py [--scans N] [--kernels-only]
 
 Drives ``simpleslam_tpu_torch`` (never jax) through eight phases and fails
 with a nonzero exit on the first problem:
@@ -11,28 +11,41 @@ with a nonzero exit on the first problem:
 3. kernels against their plain PyTorch versions at main-path shapes (a
    merged map at dims (96, 96, 16) x 24 points, 8192 queries): K1
    ``fit_and_linearize_merged`` and K2 ``plane_normal_equations`` within the
-   reference's tolerances, K1 bit-identical across two calls, and median
-   times from CUDA events;
+   reference's tolerances, K1 bit-identical across two calls; K3
+   ``gn_loop_fused`` (the whole GN loop in one launch) against its plain
+   version ``gn_loop_stepwise`` from the on-pose start and from a 0.25 m
+   offset start, degeneracy guard off and on: pose within 1e-4 m and
+   1e-5 rad, the same iterations / gathers / converged and n_valid within
+   4 rows, bit-identical across two calls; median times from CUDA events, K3's
+   device time from ``torch.profiler``, and the grid barrier's cost;
 4. the lo-mode LOAM slice: ``SlamSystem`` + ``run_offline`` on the bench's
-   ``lo`` config and sequence, checked for accuracy and for having run
-   through both kernels (and never through a plain version);
+   ``lo`` config and sequence;
 5. streamed lo: the bench's ``lo`` config through ``run_streamed`` (batches
    of 32 scans) on the bench's 150-scan sequence at full width;
 6. streamed full: the bench's headline ``full`` config (pose-graph backend
    on its worker thread, ScanContext + VGICP loop closure) on the same
-   sequence, after ``SlamSystem.prewarm``; then K1 and K2 against their plain
-   versions (as in 3) on this path's own inputs: its last target and its
-   last scan prepped as the executor preps it, at the latched scan
-   capacity, with the times that the kernels JSON line reports;
+   sequence, after ``SlamSystem.prewarm``; then K1, K2 and K3 against their
+   plain versions (as in 3) on this path's own inputs: its last target and
+   its last scans prepped as the executor preps them, at the latched scan
+   capacity, with the times that the kernels JSON line reports. K3 is held
+   against the stepwise loop on its last 48 scans (two starts, guard off
+   and on): a comparison whose counts differ is reported, and more than 1 %
+   of them over phases 3 and 6 is a failure;
 7. loop closure: the courtyard loop of tests/test_pipeline_lc.py (world and
    config copied here) with ``tpu.sync_backend``, run twice: at least one
    accepted closure and one solve that ran, closures within 0.3 m / 5 deg of
    the truth, the four bounds of that test, and bit-identical poses;
-   phases 4-7 each check accuracy and finite poses, and that K1 and K2 ran
-   on that path and no plain version did; 5-7 print scans/s, the streamed
-   stage timers and peak device memory;
-8. the result: a JSON line of the kernels (with the launches of each path),
-   the nvidia-smi line, and last a JSON line ``{"ok": true, "device": ...}``.
+   phases 4-7 each check accuracy and finite poses, that K3 was launched
+   once per registration and that no plain version (K1's, K2's or the
+   stepwise loop) ran on CUDA; 5-7 print scans/s, the streamed stage timers
+   and peak device memory, run one batch body with
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
+   before the packed read) and print that batch's launches per scan and the
+   device's idle share from ``torch.profiler``;
+8. the result: a JSON line of the kernels (with the launches of each path:
+   K3's launches, and for K1 and K2 the times their bodies ran as phases of
+   K3, from the recorded gathers and iterations), the nvidia-smi line, and
+   last a JSON line ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -60,6 +73,24 @@ SUBMAP_CAP = 131072       # tpu.submap_capacity
 JTJ_RTOL = 2e-5           # of max |J^T J|
 JTE_RTOL = 5e-4           # of max |J^T e|
 OK_MISMATCH_MAX = 1e-3    # share of queries whose plane gate may flip
+# K3 against the stepwise loop: both run the same f32 formulas with sums in
+# another order and another 6x6 factorization, so poses agree to rounding
+POSE_T_TOL = 1e-4         # metres
+POSE_R_TOL = 1e-5         # radians
+COUNT_MISMATCH_MAX = 0.01  # share of comparisons whose counts may differ
+# n_valid may differ by a few rows where the two loops' poses differ by 1e-5 m
+# after a step: with the guard on, torch's f32 eigh and the kernel's Jacobi
+# eigensolve disagree by that much on these ill-conditioned systems (the CPU
+# tests hold both against float64), and such a gap moves the 5-NN choice of
+# about one query in 5000
+N_VALID_TOL = 4
+START_OFFSET = (0.25, -0.15, 0.05)   # the perturbed start, metres
+SMALL_OFFSET = (0.03, -0.02, 0.01)   # a start that needs no new gather
+DEGEN = 0.02              # loam.DEGEN_EIGEN_PER_ROW (the guard's floor)
+N_FUSED_SCANS = 48        # scans of the streamed path K3 is held on
+# roofline of the card (NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -86,6 +117,88 @@ def time_ms(fn, reps: int = 50) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def bounds(n_q: int, n_valid: int, n_cand: int, gathers: int = 1,
+           iters: int = 1) -> dict:
+    """The least time (ms) the card could take for each kernel's work on
+    these inputs, and what sets it: bytes moved once over the memory rate
+    against f32 operations over the peak rate.
+
+    K1 reads one int16 row per valid query (masked-out queries need none),
+    the queries (p_map, sqrt_r, mask) and writes the planes and the sums;
+    about 24 operations per candidate (dequantize, distance, five selection
+    rounds) plus about 520 per query (plane fit, gates, the 28-term row).
+    K2 streams planes and queries, about 120 operations per query. K3 reads
+    the rows once per K1 phase it ran and the scan once; its K2 phases read
+    nothing; about 1,500 operations per small step.
+    """
+    row = n_cand * 3 * 2
+    sums = (36 + 6 + 1) * 4
+    k1_bytes = n_valid * row + n_q * (12 + 4 + 1) + n_q * (12 + 12 + 1) + sums
+    k1_ops = n_valid * (24 * n_cand + 520)
+    k2_bytes = n_q * (12 + 12 + 1 + 12 + 4) + sums
+    k2_ops = n_q * 120
+    k3_bytes = gathers * n_valid * row + n_q * (12 + 1) + 64 + 80
+    k3_ops = gathers * k1_ops + (iters - gathers) * k2_ops + iters * 1500
+    out = {}
+    for name, nbytes, ops in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
+                              ("k3", k3_bytes, k3_ops)):
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+        out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
+    return out
+
+
+def device_activity(prof):
+    """(kernels, copies and fills, busy us, span us) of the device events a
+    ``torch.profiler`` run recorded; None when it saw no device event."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None
+    copies = sum(1 for e in evs
+                 if e.name.lower().startswith(("memcpy", "memset")))
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return (len(evs) - copies, copies, busy,
+            max(b for _, b in spans) - spans[0][0])
+
+
+class GnRecorder:
+    """Observes ``loam.gn_loop`` during a run: keeps every registration's
+    iteration and gather counts on the device and reads them once at the
+    end. ``k1_phases`` / ``k2_phases`` are the times K1's and K2's bodies
+    ran inside K3."""
+
+    def __enter__(self):
+        from simpleslam_tpu_torch.ops import loam
+
+        self._loam, self._orig, self._rows = loam, loam.gn_loop, []
+
+        def recording(*args, **kwargs):
+            res = self._orig(*args, **kwargs)
+            self._rows.append(torch.stack([res.iters, res.n_gathers]))
+            return res
+
+        loam.gn_loop = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._loam.gn_loop = self._orig
+        counts = (torch.stack(self._rows).cpu().numpy() if self._rows
+                  else np.zeros((0, 2), np.int64))
+        self.n_reg = len(counts)
+        self.k1_phases = int(counts[:, 1].sum())
+        self.k2_phases = int((counts[:, 0] - counts[:, 1]).sum())
+        return False
 
 
 def environment() -> str:
@@ -152,15 +265,14 @@ def kernel_inputs(dev):
     src = pcops.compact(vox.voxel_downsample(
         pcops.from_numpy(scan, 32768, dev), 0.5), N_QUERIES)
     pose = torch.tensor(poses[16].astype(np.float32), device=dev)
-    off = pose.clone()
-    off[:3, 3] += torch.tensor([0.25, -0.15, 0.05], device=dev)
+    off = offset_pose(pose)
     print(f"map rows {tuple(vm.rows.shape)} int16 "
           f"({vm.rows.numel() * 2 / 1e6:.1f} MB), queries {src.capacity} "
           f"({int(src.mask.sum())} valid)")
     sqrt_r = loam.source_sqrt_range(src)
     p_on = geo.transform_points(pose, src.xyz)
     p_off = geo.transform_points(off, src.xyz)
-    return vm, src, sqrt_r, p_on, p_off
+    return vm, src, sqrt_r, p_on, p_off, pose
 
 
 def compare(name, got, ref):
@@ -238,28 +350,181 @@ def time_kernels(vm, src, sqrt_r, p_on, p_off) -> dict:
     }
 
 
+def _rot_angle(Ra: np.ndarray, Rb: np.ndarray) -> float:
+    """Angle of Ra^T Rb from its skew part, in f64 (arccos of the trace
+    cannot resolve 1e-5 rad)."""
+    dR = Ra.astype(np.float64).T @ Rb.astype(np.float64)
+    return 0.5 * float(np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                                       dR[1, 0] - dR[0, 1]]))
+
+
+class FusedTally:
+    """K3 against ``gn_loop_stepwise`` over many comparisons."""
+
+    def __init__(self):
+        self.n = self.count_mismatches = self.n_valid_gaps = 0
+        self.t_err = self.r_err = 0.0
+
+    def compare(self, tag: str, src, vm, start, degen: float, verbose=True):
+        from simpleslam_tpu_torch.ops import loam
+
+        got = loam.gn_loop(src, vm, start, degen_per_row=degen)
+        again = loam.gn_loop(src, vm, start, degen_per_row=degen)
+        ref = loam.gn_loop_stepwise(src, vm, start, degen_per_row=degen)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K3 {tag}: two launches differ: not deterministic")
+        c_got = (int(got.iters), int(got.n_gathers), int(got.n_valid),
+                 bool(got.converged))
+        c_ref = (int(ref.iters), int(ref.n_gathers), int(ref.n_valid),
+                 bool(ref.converged))
+        p, q = got.pose.cpu().numpy(), ref.pose.cpu().numpy()
+        if not np.isfinite(p).all():
+            fail(f"K3 {tag}: non-finite pose")
+        t_err = float(np.linalg.norm(p[:3, 3].astype(np.float64) - q[:3, 3]))
+        r_err = _rot_angle(p[:3, :3], q[:3, :3])
+        self.n += 1
+        if c_got[:2] != c_ref[:2] or c_got[3] != c_ref[3] \
+                or abs(c_got[2] - c_ref[2]) > N_VALID_TOL:
+            # a threshold fell the other way on a rounding difference: the
+            # two loops took different steps, so the poses are not compared
+            self.count_mismatches += 1
+            print(f"  K3 {tag}: counts (iters, gathers, n_valid, converged) "
+                  f"{c_got} vs stepwise {c_ref}; poses {t_err:.3e} m, "
+                  f"{r_err:.3e} rad apart")
+            return got
+        if c_got[2] != c_ref[2]:
+            self.n_valid_gaps += 1
+            print(f"  K3 {tag}: n_valid {c_got[2]} vs stepwise {c_ref[2]} "
+                  f"(iters {c_got[0]}, gathers {c_got[1]} the same); poses "
+                  f"{t_err:.3e} m, {r_err:.3e} rad apart")
+        self.t_err, self.r_err = max(self.t_err, t_err), max(self.r_err, r_err)
+        if verbose:
+            print(f"  K3 {tag}: iters {c_got[0]}, gathers {c_got[1]}, n_valid "
+                  f"{c_got[2]}, converged {c_got[3]} (stepwise: n_valid "
+                  f"{c_ref[2]}, the rest the same); pose {t_err:.3e} m, "
+                  f"{r_err:.3e} rad from stepwise; second launch bit-identical")
+        if t_err > POSE_T_TOL or r_err > POSE_R_TOL:
+            fail(f"K3 {tag}: pose {t_err:.3e} m / {r_err:.3e} rad from the "
+                 f"stepwise loop (limits {POSE_T_TOL} / {POSE_R_TOL})")
+        return got
+
+    def check(self) -> None:
+        share = self.count_mismatches / max(self.n, 1)
+        print(f"K3 against the stepwise loop: {self.n} comparisons, "
+              f"{self.count_mismatches} with differing iterations, gathers, "
+              f"converged flag or n_valid more than {N_VALID_TOL} rows apart "
+              f"({100 * share:.2f} %), {self.n_valid_gaps} more with n_valid "
+              f"1-{N_VALID_TOL} rows apart, largest pose gap "
+              f"{self.t_err:.3e} m / {self.r_err:.3e} rad")
+        if share > COUNT_MISMATCH_MAX:
+            fail(f"K3: counts differ from the stepwise loop in "
+                 f"{100 * share:.2f} % of comparisons")
+
+
+def offset_pose(pose: torch.Tensor) -> torch.Tensor:
+    off = pose.clone()
+    off[:3, 3] += torch.tensor(START_OFFSET, device=pose.device)
+    return off
+
+
+def hold_fused(tally: FusedTally, label: str, vm, src, pose) -> dict:
+    """K3 against its plain version from the on-pose and the offset start,
+    guard off and on. Returns the on-pose run's counts."""
+    counts = {}
+    for tag, start in (("on-pose", pose), ("offset", offset_pose(pose))):
+        for gtag, degen in (("guard off", 0.0), ("guard on", DEGEN)):
+            got = tally.compare(f"{label} {tag}, {gtag}", src, vm, start, degen)
+            if degen == 0.0:
+                counts[tag] = (int(got.iters), int(got.n_gathers))
+    return counts
+
+
+def time_fused(vm, src, pose, card: str, label: str) -> dict:
+    """Median ms per call (CUDA events) of K3 and of the stepwise loop, and
+    K3's device time per launch (torch.profiler), from three starts: on the
+    pose, a small offset (more iterations, no new gather) and the 0.25 m
+    offset (a regather). From the three device times and their counts, what
+    an iteration costs with a K1 phase and with a K2 phase; and the grid
+    barrier's cost alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    small = pose.clone()
+    small[:3, 3] += torch.tensor(SMALL_OFFSET, device=pose.device)
+    t, rows = {}, []
+    for key, tag, start in (("k3", "on-pose", pose),
+                            ("k3_small", "small offset", small),
+                            ("k3_off", "offset", offset_pose(pose))):
+        res = loam.gn_loop(src, vm, start)
+        iters, gathers = int(res.iters), int(res.n_gathers)
+        t[key] = time_ms(lambda: loam.gn_loop(src, vm, start))
+        t[key + "_plain"] = time_ms(
+            lambda: loam.gn_loop_stepwise(src, vm, start), 10)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                loam.gn_loop(src, vm, start)
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if "gn_loop_kernel" in e.name
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        dev = (1e-3 * statistics.median(durs)) if durs else None
+        t[key + "_dev"] = dev
+        if dev is not None:
+            rows.append((gathers, iters - gathers, dev))
+        print(f"  K3 from the {tag} start ({iters} iterations, {gathers} K1 "
+              f"phases): median {t[key]:.4f} ms per call, device time "
+              f"{'not measured' if dev is None else f'{dev:.4f} ms'} per "
+              f"launch, stepwise {t[key + '_plain']:.4f} ms ({card}, {label})")
+    one = time_ms(lambda: lk.barrier_probe(src.xyz.device, 1))
+    many = time_ms(lambda: lk.barrier_probe(src.xyz.device, 257))
+    t["barrier"] = (many - one) / 256.0
+    print(f"  one grid barrier {1e3 * t['barrier']:.2f} us ({card})")
+    if len(rows) == 3:
+        a = np.array([[1.0, g, k] for g, k, _ in rows])
+        if abs(np.linalg.det(a)) > 1e-9:
+            fixed, k1_it, k2_it = np.linalg.solve(
+                a, np.array([d for _, _, d in rows]))
+            print(f"  K3 device time split from those three: {1e3 * fixed:.1f}"
+                  f" us per launch + {1e3 * k1_it:.1f} us per iteration with "
+                  f"a K1 phase + {1e3 * k2_it:.1f} us per iteration with a K2 "
+                  f"phase (each with its barrier, sums and small step) "
+                  f"({card}, {label})")
+    return t
+
+
 def kernels(card: str):
     phase("kernels against plain versions")
     dev = torch.device("cuda")
-    vm, src, sqrt_r, p_on, p_off = kernel_inputs(dev)
+    vm, src, sqrt_r, p_on, p_off, pose = kernel_inputs(dev)
     errs = hold_kernels("offline", vm, src, sqrt_r, p_on, p_off)
+    tally = FusedTally()
+    hold_fused(tally, "offline", vm, src, pose)
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
         print(f"  {k.upper()} median {t[k]:.4f} ms, plain {t[k + '_plain']:.4f}"
               f" ms ({card}, Q={N_QUERIES})")
+    time_fused(vm, src, pose, card, f"Q={N_QUERIES}")
+    src_file = "simpleslam_tpu_torch/csrc/loam_kernels.cu"
     results = [
         {"name": "fit_and_linearize_merged", "route": "cuda",
-         "source": "simpleslam_tpu_torch/csrc/loam_kernels.cu",
+         "source": src_file,
          "replaces": "simpleslam_tpu/ops/loam_pallas.py:67",
-         "max_abs_err": errs["k1"], "ms": t["k1"], "plain_ms": t["k1_plain"]},
+         "max_abs_err": errs["k1"]},
         {"name": "plane_normal_equations", "route": "cuda",
-         "source": "simpleslam_tpu_torch/csrc/loam_kernels.cu",
+         "source": src_file,
          "replaces": "simpleslam_tpu/ops/loam_pallas.py:177",
-         "max_abs_err": errs["k2"], "ms": t["k2"], "plain_ms": t["k2_plain"]},
+         "max_abs_err": errs["k2"]},
+        {"name": "gn_loop_fused", "route": "cuda", "source": src_file,
+         "replaces": "simpleslam_tpu/ops/loam_pallas.py:67",
+         "max_abs_err": tally.t_err},
     ]
     del vm
     torch.cuda.empty_cache()
-    return results
+    return results, tally
 
 
 def slice_run(n_scans: int, card: str):
@@ -279,10 +544,10 @@ def slice_run(n_scans: int, card: str):
                              "torch": {"device": "cuda"}})
     torch.cuda.reset_peak_memory_stats()
     lk.reset_counts()
-    result = app.run_offline(system, streams)
-    torch.cuda.synchronize()
-    launches = {"k1": lk.K1_LAUNCHES, "k2": lk.K2_LAUNCHES}
-    plain = lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
+    with GnRecorder() as rec:
+        result = app.run_offline(system, streams)
+        torch.cuda.synchronize()
+    launches = launch_counts(rec)
     ate = sim.ate_rmse(streams.gt_poses, result.poses)
     per_scan = np.asarray(result.timers.series["odometry"])
     warm = per_scan[5:] if len(per_scan) > 10 else per_scan
@@ -291,21 +556,11 @@ def slice_run(n_scans: int, card: str):
           f"odometry median {1e3 * float(np.median(warm)):.2f} ms/scan "
           f"after 5 warm-up scans ({card})")
     print(result.timers.report())
-    print(f"ATE {ate:.4f} m, keyframes {result.keyframe_count}, converged "
-          f"{result.converged_frac:.3f}, K1 launches {launches['k1']}, "
-          f"K2 launches {launches['k2']}, plain CUDA calls {plain}, peak "
-          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    if not np.isfinite(result.poses).all() or result.poses.shape != (
-            n_scans, 4, 4):
-        fail("trajectory is not finite (n_scans, 4, 4)")
-    if not ate < 0.15:
-        fail(f"ATE {ate} >= 0.15 m")
-    if not result.converged_frac > 0.95:
-        fail(f"converged fraction {result.converged_frac} <= 0.95")
-    if launches["k1"] == 0 or launches["k2"] == 0:
-        fail(f"a kernel never ran on the main path: {launches}")
-    if plain != 0:
-        fail(f"plain versions ran {plain} times on CUDA in the main path")
+    print(f"ATE {ate:.4f} m (0.0047 m before K3), keyframes "
+          f"{result.keyframe_count}, converged {result.converged_frac:.3f}, "
+          f"{describe_launches(launches)}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    check_path("offline lo", result, n_scans, ate, 0.15, 0.95, launches)
     return launches
 
 
@@ -320,11 +575,26 @@ STREAMED_ATE_MAX = 0.25
 STREAMED_CONV_MIN = 0.9
 
 
-def launch_counts():
+def launch_counts(rec: GnRecorder) -> dict:
+    """Kernel launches of the run just made: K3's (and the standalone K1 /
+    K2 wrappers', which the main paths no longer call), the plain versions'
+    calls on CUDA tensors, and from the recorder the registrations and the
+    times K1's and K2's bodies ran as phases of K3."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
-    return {"k1": lk.K1_LAUNCHES, "k2": lk.K2_LAUNCHES,
-            "plain": lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS}
+    return {"k3": lk.K3_LAUNCHES, "k1_standalone": lk.K1_LAUNCHES,
+            "k2_standalone": lk.K2_LAUNCHES,
+            "plain": lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS,
+            "stepwise": lk.K3_PLAIN_CUDA_CALLS, "registrations": rec.n_reg,
+            "k1": rec.k1_phases, "k2": rec.k2_phases}
+
+
+def describe_launches(c: dict) -> str:
+    return (f"K3 launches {c['k3']} for {c['registrations']} registrations "
+            f"(K1 phases {c['k1']}, K2 phases {c['k2']} inside them), "
+            f"standalone K1 / K2 launches {c['k1_standalone']} / "
+            f"{c['k2_standalone']}, plain CUDA calls {c['plain']}, stepwise "
+            f"loops on CUDA {c['stepwise']}")
 
 
 def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
@@ -337,33 +607,114 @@ def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
     if not result.converged_frac > conv_min:
         fail(f"{name}: converged fraction {result.converged_frac} <= "
              f"{conv_min}")
-    if launches["k1"] == 0 or launches["k2"] == 0:
-        fail(f"{name}: a kernel never ran on this path: {launches}")
-    if launches["plain"] != 0:
-        fail(f"{name}: plain versions ran {launches['plain']} times on CUDA")
+    # every scan but the one that seeds the map is registered, each by one
+    # launch of K3
+    if not (launches["k3"] == launches["registrations"] == n_scans - 1):
+        fail(f"{name}: K3 launches {launches['k3']}, registrations "
+             f"{launches['registrations']}, scans {n_scans}")
+    if launches["k1"] < launches["registrations"] or launches["k2"] == 0:
+        fail(f"{name}: a phase of K3 never ran on this path: {launches}")
+    if launches["plain"] != 0 or launches["stepwise"] != 0:
+        fail(f"{name}: plain versions ran on CUDA: {launches}")
 
 
 def report_streamed(name: str, result, n_scans: int, ate: float,
-                    launches: dict, card: str) -> None:
+                    launches: dict, card: str, ate_before: float) -> None:
     t = result.timers
     stages = ", ".join(
         f"{k} {1e3 * t.mean(k):.2f} ms x{t.count[k]}"
         for k in ("prep", "upload", "dispatch", "fetch", "bookkeep",
                   "map_update", "backend", "lc") if t.count[k])
+    n_reg = max(launches["registrations"], 1)
     print(f"{name}: {n_scans} scans in {result.wall_time:.2f} s = "
           f"{n_scans / result.wall_time:.2f} scans/s end to end ({card})")
-    print(f"{name}: stage means {stages} ({card})")
+    print(f"{name}: stage means {stages}; dispatch "
+          f"{1e3 * t.total['dispatch'] / n_reg:.3f} ms per scan ({card})")
     print(result.timers.report())
-    print(f"{name}: ATE {ate:.4f} m (unaligned), keyframes "
-          f"{result.keyframe_count}, converged {result.converged_frac:.3f}, "
-          f"GN iterations/scan {result.extras['gn_iters_mean']}, scan "
-          f"capacity {result.extras['scan_capacity']}, K1 launches "
-          f"{launches['k1']}, K2 launches {launches['k2']}, plain CUDA calls "
-          f"{launches['plain']}, peak device memory "
+    print(f"{name}: ATE {ate:.4f} m (unaligned; {ate_before:.4f} m before K3),"
+          f" keyframes {result.keyframe_count}, converged "
+          f"{result.converged_frac:.3f}, GN iterations/scan "
+          f"{result.extras['gn_iters_mean']}, scan capacity "
+          f"{result.extras['scan_capacity']}, {describe_launches(launches)}, "
+          f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
 
 
-def streamed_run(name: str, cfg: dict, streams, card: str, prewarm=False):
+def prep_scans(system, streams, idx, cap: int):
+    """Scans ``idx`` as the streamed executor preps them (downsampled,
+    spatially sorted, int16) at scan capacity ``cap``: (rows, counts)."""
+    from simpleslam_tpu_torch import native
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    return native.voxel_downsample_sort_quant_batch(
+        [np.asarray(streams.scans[i], np.float32) for i in idx],
+        float(system.lidar_odometry.grid_size), cap,
+        float(system.register.TARGET_GRID), streamed.UPLOAD_SCALE)
+
+
+def batch_probe(name: str, system, streams, result, sync_every: int,
+                card: str) -> None:
+    """One batch body on the path's own state (its last target, its last
+    ``sync_every`` scans, the chain at the scans before them): first with
+    sync debugging set to raise, so any host synchronisation before the
+    packed read is an error; then under ``torch.profiler`` for the launches
+    per scan and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import streamed
+    from simpleslam_tpu_torch.utils.config import Params
+
+    dev = system.register.device
+    n = len(streams.scan_stamps)
+    k = min(sync_every, n - 2)
+    idx = list(range(n - k, n))
+    rows, _ = prep_scans(system, streams, idx,
+                         int(result.extras["scan_capacity"]))
+    rows_d = torch.from_numpy(rows).to(dev)
+    prev = torch.tensor(result.poses[n - k - 1].astype(np.float32), device=dev)
+    prev2 = torch.tensor(result.poses[n - k - 2].astype(np.float32),
+                         device=dev)
+    eye = torch.eye(4, device=dev)
+    args = (rows_d, system.map_manager.get_target(), prev, prev2, eye,
+            system.register.KIND,
+            bool(Params.get_instance()["frontend"].get("planar_clamp", True)),
+            float(system.register.degen_per_row))
+    streamed._batch_body(*args)[1].cpu()
+    torch.cuda.synchronize()
+    before = lk.K3_LAUNCHES
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, packed = streamed._batch_body(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rows_h = packed.cpu().numpy()
+    if lk.K3_LAUNCHES - before != k or not np.isfinite(rows_h).all():
+        fail(f"{name}: batch body under sync debugging: K3 launches "
+             f"{lk.K3_LAUNCHES - before} for {k} scans")
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        streamed._batch_body(*args)[1].cpu()
+    wall = time.perf_counter() - t0
+    act = device_activity(prof)
+    line = (f"{name}: one batch body of {k} scans ran with sync debugging "
+            f"set to raise (no host synchronisation before the packed read);"
+            f" converged {int(rows_h[:, 16].sum())} of {k}; ")
+    if act is None:
+        print(line + "torch.profiler saw no device event: launches per scan "
+              f"and idle share not measured ({card})")
+        return
+    kern, copies, busy, span = act
+    print(line + f"under torch.profiler {kern / k:.1f} kernel launches and "
+          f"{copies / k:.2f} copies or fills per scan, device busy "
+          f"{1e-3 * busy:.3f} ms of a {1e-3 * span:.3f} ms span: idle share "
+          f"{100 * (1 - busy / span):.1f} % (host wall {1e3 * wall:.1f} ms "
+          f"with the profiler on) ({card})")
+
+
+def streamed_run(name: str, cfg: dict, streams, card: str, ate_before: float,
+                 prewarm=False):
     """One bench config through ``run_streamed``; returns the kernel counts
     of exactly that run, the system and the result."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
@@ -380,24 +731,27 @@ def streamed_run(name: str, cfg: dict, streams, card: str, prewarm=False):
         print(f"{name}: prewarm {time.perf_counter() - t0:.2f} s ({card})")
     torch.cuda.reset_peak_memory_stats()
     lk.reset_counts()
-    result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY)
-    torch.cuda.synchronize()
-    launches = launch_counts()
+    with GnRecorder() as rec:
+        result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY)
+        torch.cuda.synchronize()
+    launches = launch_counts(rec)
     n = len(streams.scan_stamps)
     ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
-    report_streamed(name, result, n, ate, launches, card)
+    report_streamed(name, result, n, ate, launches, card, ate_before)
     check_path(name, result, n, ate, STREAMED_ATE_MAX, STREAMED_CONV_MIN,
                launches)
+    batch_probe(name, system, streams, result, BENCH_SYNC_EVERY, card)
     return launches, system, result
 
 
-def main_path_kernels(system, streams, result, card: str):
-    """K1/K2 against their plain versions on the streamed path's own inputs:
-    the target its last batch registered against, and the last scan prepped
-    as the executor preps it (downsampled, spatially sorted, int16) at the
-    run's latched scan capacity, placed at its recorded pose. Returns the
-    max abs errors and the times."""
-    from simpleslam_tpu_torch import native
+def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
+    """K1, K2 and K3 against their plain versions on the streamed path's own
+    inputs: the target its last batch registered against, and its last scans
+    prepped as the executor preps them (downsampled, spatially sorted, int16)
+    at the run's latched scan capacity, placed at their recorded poses. The
+    last scan gets the full treatment and the timings; K3 is also held
+    against the stepwise loop on the N_FUSED_SCANS before it. Returns the
+    max abs errors, the times and the bounds for the timed inputs."""
     from simpleslam_tpu_torch.ops import geometry as geo
     from simpleslam_tpu_torch.ops import loam
     from simpleslam_tpu_torch.pipeline import streamed
@@ -405,29 +759,66 @@ def main_path_kernels(system, streams, result, card: str):
     phase("kernels against plain versions on the streamed full inputs")
     dev = system.register.device
     cap = int(result.extras["scan_capacity"])
-    i = len(streams.scan_stamps) - 1
-    rows, cnts = native.voxel_downsample_sort_quant_batch(
-        [np.asarray(streams.scans[i], np.float32)],
-        float(system.lidar_odometry.grid_size), cap,
-        float(system.register.TARGET_GRID), streamed.UPLOAD_SCALE)
-    src = streamed.upload_cloud(torch.from_numpy(rows[0]).to(dev))
+    n = len(streams.scan_stamps)
+    idx = list(range(max(1, n - 1 - N_FUSED_SCANS), n))
+    rows, cnts = prep_scans(system, streams, idx, cap)
+    rows_d = torch.from_numpy(rows).to(dev)
     vm = system.map_manager.get_target()
-    pose = torch.tensor(result.poses[i].astype(np.float32), device=dev)
-    off = pose.clone()
-    off[:3, 3] += torch.tensor([0.25, -0.15, 0.05], device=dev)
+
+    def pose_of(i):
+        return torch.tensor(result.poses[i].astype(np.float32), device=dev)
+
+    i = idx[-1]
+    src = streamed.upload_cloud(rows_d[-1])
+    pose = pose_of(i)
+    off = offset_pose(pose)
     sqrt_r = loam.source_sqrt_range(src)
     p_on = geo.transform_points(pose, src.xyz)
     p_off = geo.transform_points(off, src.xyz)
-    print(f"scan {i} at scan capacity {cap} ({int(cnts[0])} valid, queries "
+    n_valid_q = int(cnts[-1])
+    print(f"scan {i} at scan capacity {cap} ({n_valid_q} valid, queries "
           f"{src.capacity}), target rows {tuple(vm.rows.shape)} int16")
     if src.capacity != cap:
         fail(f"queries {src.capacity} != scan capacity {cap}")
     errs = hold_kernels("streamed full", vm, src, sqrt_r, p_on, p_off)
+    before = tally.t_err
+    tally.t_err = 0.0
+    counts = hold_fused(tally, "streamed full", vm, src, pose)
+    t0 = time.perf_counter()
+    for k, j in enumerate(idx[:-1]):
+        src_j = streamed.upload_cloud(rows_d[k])
+        for tag, start in (("on-pose", pose_of(j)),
+                           ("offset", offset_pose(pose_of(j)))):
+            for degen in (0.0, DEGEN):
+                tally.compare(f"streamed full scan {j} {tag}, guard "
+                              f"{'on' if degen else 'off'}", src_j, vm, start,
+                              degen, verbose=False)
+    print(f"  K3 held against the stepwise loop on scans {idx[0]}-{idx[-2]} "
+          f"in {time.perf_counter() - t0:.1f} s")
+    errs["k3"] = tally.t_err
+    tally.t_err = max(tally.t_err, before)
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
         print(f"  {k.upper()} median {t[k]:.4f} ms, plain {t[k + '_plain']:.4f}"
               f" ms ({card}, Q={cap}, streamed full inputs)")
-    return errs, t
+    t.update(time_fused(vm, src, pose, card, f"Q={cap}, streamed full inputs"))
+    iters, gathers = counts["on-pose"]
+    bd = bounds(cap, n_valid_q, 8 * vm.slab_pts, gathers, iters)
+    iters_o, gathers_o = counts["offset"]
+    bd_off = bounds(cap, n_valid_q, 8 * vm.slab_pts, gathers_o, iters_o)
+    for k in ("k1", "k2", "k3"):
+        print(f"  {k.upper()} bound {1e3 * bd[k][0]:.3f} us by {bd[k][1]} "
+              f"({n_valid_q} valid queries of {cap}); measured "
+              f"{1e3 * t[k]:.1f} us per wrapper call = "
+              f"{100 * bd[k][0] / t[k]:.2f} % of the bound's rate ({card})")
+    if t.get("k3_dev"):
+        print(f"  K3 from the on-pose start ({gathers} K1 phases in {iters} "
+              f"iterations): device time {1e3 * t['k3_dev']:.1f} us per "
+              f"launch = {100 * bd['k3'][0] / t['k3_dev']:.2f} % of the "
+              f"bound's rate; from the offset start ({gathers_o} K1 phases in "
+              f"{iters_o} iterations) bound {1e3 * bd_off['k3'][0]:.3f} us, "
+              f"device {1e3 * (t['k3_off_dev'] or 0):.1f} us ({card})")
+    return errs, t, bd
 
 
 # -- the courtyard loop of tests/test_pipeline_lc.py (copied: no jax here) ---
@@ -496,12 +887,13 @@ def loop_closure_run(card: str):
         system = app.SlamSystem(dict(LC_CFG, torch={"device": "cuda"}))
         torch.cuda.reset_peak_memory_stats()
         lk.reset_counts()
-        result = run_streamed(system, streams)
-        torch.cuda.synchronize()
-        launches = launch_counts()
+        with GnRecorder() as rec:
+            result = run_streamed(system, streams)
+            torch.cuda.synchronize()
+        launches = launch_counts(rec)
         ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
         name = f"loop closure run {rep + 1}"
-        report_streamed(name, result, LC_SCANS, ate, launches, card)
+        report_streamed(name, result, LC_SCANS, ate, launches, card, 0.0145)
         be, lcm = system.backend, system.loop_closure
         print(f"{name}: LC queries {lcm.n_queries}, candidates "
               f"{lcm.n_candidates}, converged verifications "
@@ -542,6 +934,8 @@ def loop_closure_run(card: str):
               f"{raw:.4f} m raw")
         if not (post <= raw + 0.02 and post < 0.1):
             fail(f"{name}: post-solve keyframes worse than raw odometry")
+        if rep == 0:
+            batch_probe(name, system, streams, result, 16, card)
         runs.append((result.poses, launches))
     same = np.array_equal(runs[0][0], runs[1][0])
     print(f"loop closure: two sync_backend runs bit-identical: {same}")
@@ -554,10 +948,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=100)
     ap.add_argument("--stream-scans", type=int, default=150)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after phase 3 (build, kernels against their "
+                         "plain versions); prints no result line")
     args = ap.parse_args()
     card = environment()
     build()
-    kern = kernels(card)
+    kern, tally = kernels(card)
+    if args.kernels_only:
+        tally.check()
+        print("kernels-only run: phases 1-3 passed, no path was driven")
+        return 0
     by_path = {"offline_lo": slice_run(args.scans, card)}
 
     from simpleslam_tpu_torch.pipeline import simulate as sim
@@ -569,26 +970,42 @@ def main() -> int:
     print(f"simulated {args.stream_scans} scans in "
           f"{time.perf_counter() - t0:.1f} s (host numpy, not part of a path)")
     by_path["streamed_lo"] = streamed_run("streamed lo (bench lo config)",
-                                          BENCH_LO, streams, card)[0]
+                                          BENCH_LO, streams, card, 0.0078)[0]
     by_path["streamed_full"], full_sys, full_res = streamed_run(
         "streamed full (bench full config)", BENCH_FULL, streams, card,
-        prewarm=True)
+        0.0078, prewarm=True)
     be = full_sys.backend
     print(f"streamed full: LC queries {full_sys.loop_closure.n_queries}, "
           f"accepted {be.n_lc_edges}; solves run {be.n_solves}, skipped "
           f"{be.n_skipped_noop_solves}")
-    main_errs, main_t = main_path_kernels(full_sys, streams, full_res, card)
+    main_errs, main_t, main_bd = main_path_kernels(full_sys, streams, full_res,
+                                                   card, tally)
+    tally.check()
     del full_sys, be, full_res
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
 
-    # launches, errors and times of the main path (streamed full); the
-    # offline inputs' errors count as well
-    for k, key in ((kern[0], "k1"), (kern[1], "k2")):
+    # launches, errors, times and bounds of the main path (streamed full);
+    # the offline inputs' errors count as well. K3 is the kernel the paths
+    # launch; K1's and K2's bodies run inside it as its phases, so their
+    # "launches" are those phase counts and their standalone wrappers'
+    # launches on the path are reported beside them (0).
+    for k, key in zip(kern, ("k1", "k2", "k3")):
         k["max_abs_err"] = max(k["max_abs_err"], main_errs[key])
         k["ms"], k["plain_ms"] = main_t[key], main_t[key + "_plain"]
+        k["bound_ms"], k["bound_by"] = main_bd[key]
+        # no single PyTorch call computes a gather, a 5-round selection, a
+        # 3x3 eigensolve and a gated 28-term reduction (or a loop of them)
+        k["library_ms"] = None
         k["launches"] = by_path["streamed_full"][key]
         k["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        if key != "k3":
+            k["launches_are"] = "runs of this kernel's body as a phase of gn_loop_fused"
+            k["standalone_launches_by_path"] = {
+                p: c[key + "_standalone"] for p, c in by_path.items()}
+    kern[2]["device_ms"] = main_t.get("k3_dev")
+    kern[2]["grid_barrier_ms"] = main_t["barrier"]
+    kern[2]["max_abs_err_is"] = "pose translation against gn_loop_stepwise, metres"
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,24 +26,38 @@ from ..utils.config import Params
 
 
 def _fetch_pose(pose: torch.Tensor) -> np.ndarray:
-    """The one host read of a registration result."""
+    """A (4, 4) pose read to the host as f64."""
     return pose.cpu().numpy().astype(np.float64)
+
+
+def _fetch_result(pose: torch.Tensor, converged: torch.Tensor
+                  ) -> Tuple[np.ndarray, bool]:
+    """The one host read of a registration result: the pose and the
+    converged flag, packed."""
+    packed = torch.cat([pose.reshape(16),
+                        converged.reshape(1).to(pose.dtype)]).cpu().numpy()
+    return packed[:16].reshape(4, 4).astype(np.float64), bool(packed[16] > 0.5)
 
 
 def register_kind(ds: PointCloud, target, init_pose: torch.Tensor, kind: str,
                   degen: float = 0.0):
-    """Dispatch to the configured backend: (pose (4, 4) tensor, converged,
-    fitness () tensor, iters, gathers, support). ``gathers`` counts
+    """Dispatch to the configured backend: (pose (4, 4), converged () bool,
+    fitness (), iters (), gathers (), support ()), all tensors on the pose's
+    device, so the caller decides when to read them. ``gathers`` counts
     neighbourhood sweeps (== iters for VGICP); ``support`` is the final
     normal-equation row count (0 where the backend has none)."""
-    fit = torch.zeros((), dtype=torch.float32, device=init_pose.device)
+    dev = init_pose.device
+    fit = torch.zeros((), dtype=torch.float32, device=dev)
     if kind == "loam":
         res = loam_ops.gn_loop(ds, target, init_pose, degen_per_row=degen)
         return (res.pose, res.converged, fit, res.iters, res.n_gathers,
                 res.n_valid)
     if kind == "vgicp":
         res = vgicp_ops.align(ds, target, init_pose)
-        return res.pose, res.converged, res.fitness, res.iters, res.iters, 0
+        iters = torch.full((), res.iters, dtype=torch.int32, device=dev)
+        return (res.pose, torch.full((), bool(res.converged), device=dev),
+                res.fitness, iters, iters,
+                torch.zeros((), dtype=torch.int32, device=dev))
     raise NotImplementedError(
         f"registration kind {kind!r} is not ported to simpleslam_tpu_torch "
         "yet (ROADMAP item 10)")
@@ -91,16 +105,17 @@ class PointCloudRegister:
         raise NotImplementedError
 
     def _align(self, src: PointCloud, target, pose: torch.Tensor,
-               degen_per_row: float) -> Tuple[torch.Tensor, bool]:
+               degen_per_row: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(refined pose (4, 4), converged () bool), both on the device."""
         raise NotImplementedError
 
     def scan2map(self, src: PointCloud, target,
                  pose: np.ndarray) -> Tuple[np.ndarray, bool]:
         """Refine ``pose`` (4, 4 numpy) registering ``src`` to ``target``.
         Returns (refined pose, converged)."""
-        p, self.is_converge = self._align(src, target, self.pose_tensor(pose),
-                                          0.0)
-        return _fetch_pose(p), self.is_converge
+        p, conv = self._align(src, target, self.pose_tensor(pose), 0.0)
+        out, self.is_converge = _fetch_result(p, conv)
+        return out, self.is_converge
 
     def pose_tensor(self, pose: np.ndarray) -> torch.Tensor:
         return torch.tensor(np.asarray(pose, np.float32), device=self.device)
@@ -114,11 +129,12 @@ class PointCloudRegister:
                       grid: float, ds_capacity: int):
         """Per-scan path: (clamped pose f64, converged, ds_scan)."""
         ds = pcops.compact(vox.voxel_downsample(raw, grid), ds_capacity)
-        p, self.is_converge = self._align(ds, target, self.pose_tensor(pose),
-                                          float(self.degen_per_row))
+        p, conv = self._align(ds, target, self.pose_tensor(pose),
+                              float(self.degen_per_row))
         if self.planar_clamp:
             p = geo.six_dof_to_mobile(p)
-        return _fetch_pose(p), self.is_converge, ds
+        out, self.is_converge = _fetch_result(p, conv)
+        return out, self.is_converge, ds
 
     def build_target_from_window(self, kf_buf: torch.Tensor, idx: np.ndarray,
                                  poses: np.ndarray, kf_mask: np.ndarray,

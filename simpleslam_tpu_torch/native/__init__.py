@@ -36,11 +36,13 @@ _tried = False
 _why_numpy = ""
 
 
-def _build(out: str) -> str:
-    """Compile SRC into ``out``; returns "" on success, else the reason."""
+def _build(out: str, src: Optional[str] = None,
+           flags: tuple = ("-fopenmp",)) -> str:
+    """Compile ``src`` (SRC by default) into ``out``; returns "" on success,
+    else the reason."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.tmp{os.getpid()}"
-    cmd = ["g++", "-O3", "-shared", "-fPIC", "-fopenmp", SRC, "-o", tmp]
+    cmd = ["g++", "-O3", "-shared", "-fPIC", *flags, src or SRC, "-o", tmp]
     try:
         r = subprocess.run(cmd, capture_output=True, timeout=120)
     except (OSError, subprocess.TimeoutExpired) as e:
@@ -235,3 +237,83 @@ def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
         counts_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), threads)
     return out, counts_out
+
+
+# ---------------------------------------------------------------------------
+# the GN loop kernel's small step (csrc/gn_step.h), compiled for the host
+# ---------------------------------------------------------------------------
+
+GN_SRC = os.path.join(_PKG, "csrc", "gn_step_host.cpp")
+GN_HEADER = os.path.join(_PKG, "csrc", "gn_step.h")
+_gn_lib: Optional[ctypes.CDLL] = None
+
+
+def _gn_load() -> ctypes.CDLL:
+    global _gn_lib
+    with _lock:
+        if _gn_lib is not None:
+            return _gn_lib
+        h = hashlib.sha256()
+        for path in (GN_SRC, GN_HEADER):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        out = os.path.join(BUILD_DIR, f"libgnstep_{h.hexdigest()[:16]}.so")
+        if not os.path.isfile(out):
+            # no multiply-add contraction, as the kernels' -fmad=false
+            why = _build(out, GN_SRC, ("-ffp-contract=off",))
+            if why:
+                raise RuntimeError(f"gn_step host build failed: {why}")
+        lib = ctypes.CDLL(out)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.gn_step_host.restype = ctypes.c_int
+        lib.gn_step_host.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_float,
+                                     f32p, f32p, ctypes.c_float, f32p, f32p,
+                                     f32p]
+        lib.gn_finish_host.restype = None
+        lib.gn_finish_host.argtypes = [f32p, f32p]
+        lib.gn_jacobi_eig6_host.restype = None
+        lib.gn_jacobi_eig6_host.argtypes = [f32p, f32p, f32p]
+        _gn_lib = lib
+        return lib
+
+
+def gn_step(jtj: np.ndarray, jte: np.ndarray, n_valid: int,
+            degen_per_row: float, pose: np.ndarray, anchor: np.ndarray,
+            r_max: float):
+    """One Gauss-Newton step of ``csrc/gn_step.h`` on the host: (dx (6,),
+    pose after the step (4, 4), converged-test flag, enough-rows flag, motion
+    since ``anchor``), all f32. The pose is unchanged when the loop stops at
+    this step (converged or starved)."""
+    lib = _gn_load()
+    jtj, jte = _f32c(jtj).reshape(36), _f32c(jte).reshape(6)
+    pose, anchor = _f32c(pose).reshape(16), _f32c(anchor).reshape(16)
+    dx = np.empty(6, np.float32)
+    out = np.empty(16, np.float32)
+    moved = np.empty(1, np.float32)
+    flags = lib.gn_step_host(_fp(jtj), _fp(jte), int(n_valid),
+                             ctypes.c_float(degen_per_row), _fp(pose),
+                             _fp(anchor), ctypes.c_float(r_max), _fp(dx),
+                             _fp(out), _fp(moved))
+    return (dx, out.reshape(4, 4), bool(flags & 1), bool(flags & 2),
+            float(moved[0]))
+
+
+def gn_finish(pose: np.ndarray) -> np.ndarray:
+    """The loop's epilogue of ``csrc/gn_step.h``: ``pose`` (4, 4) with its
+    rotation re-orthonormalized by the quaternion round trip."""
+    lib = _gn_load()
+    pose = _f32c(pose).reshape(16)
+    out = np.empty(16, np.float32)
+    lib.gn_finish_host(_fp(pose), _fp(out))
+    return out.reshape(4, 4)
+
+
+def jacobi_eig6(a: np.ndarray):
+    """The cyclic Jacobi eigensolve of ``csrc/gn_step.h``: (w (6,), V (6, 6))
+    with ``a = V diag(w) V^T``, eigenvalues in no particular order."""
+    lib = _gn_load()
+    a = _f32c(a).reshape(36)
+    w = np.empty(6, np.float32)
+    v = np.empty(36, np.float32)
+    lib.gn_jacobi_eig6_host(_fp(a), _fp(w), _fp(v))
+    return w, v.reshape(6, 6)

@@ -3,9 +3,9 @@
 All ``csrc/*.cu`` files compile into one shared library with a plain C
 interface, loaded with ctypes. The library goes to
 ``simpleslam_tpu_torch/build/`` under a name keyed by a hash of the sources
-and flags, so a changed source rebuilds and an unchanged one loads the
-existing file. A failed build raises with nvcc's output; there is no
-fallback.
+(with the headers they include) and flags, so a changed source rebuilds and
+an unchanged one loads the existing file. A failed build raises with nvcc's
+output; there is no fallback.
 """
 
 from __future__ import annotations
@@ -63,6 +63,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.loam_plane_normal_equations.argtypes = [
         vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
     lib.loam_plane_normal_equations.restype = ci
+    lib.loam_gn_loop_grid.argtypes = []
+    lib.loam_gn_loop_grid.restype = ci
+    lib.loam_gn_loop_partial_stride.argtypes = []
+    lib.loam_gn_loop_partial_stride.restype = ci
+    lib.loam_gn_loop_smem.argtypes = [ci]
+    lib.loam_gn_loop_smem.restype = ctypes.c_longlong
+    lib.loam_gn_loop.argtypes = [
+        vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, ctypes.c_float,
+        vp, vp, vp, vp]
+    lib.loam_gn_loop.restype = ci
+    lib.loam_barrier_probe.argtypes = [vp, ci, vp]
+    lib.loam_barrier_probe.restype = ci
 
 
 def library() -> ctypes.CDLL:
@@ -75,7 +87,7 @@ def library() -> ctypes.CDLL:
         if not srcs:
             raise RuntimeError(f"no CUDA sources in {CSRC}")
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for s in srcs:
+        for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.h"))):
             with open(s, "rb") as f:
                 h.update(f.read())
         path = os.path.join(BUILD_DIR, f"libloam_kernels_{h.hexdigest()[:16]}.so")

@@ -154,9 +154,10 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))
-    return torch.cat([top, bottom[..., None, :]], dim=-2)
+    # [0, 0, 0, 1] made on the device (a host list would be a blocking copy)
+    bottom = torch.zeros(batch + (1, 4), dtype=R.dtype, device=R.device)
+    bottom[..., 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
 
 
 def pose_inverse(T: torch.Tensor) -> torch.Tensor:

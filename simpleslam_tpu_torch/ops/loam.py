@@ -12,8 +12,10 @@ Port of ``simpleslam_tpu/ops/loam.py`` with the reference's thresholds
   step is applied; at most 8 iterations; >= 6 valid rows; rotation
   re-orthonormalized after the loop.
 
-The GN loop runs the linearization through the CUDA kernels of
-``loam_kernels`` (their plain versions for CPU tensors); the functions below
+On CUDA tensors the GN loop is one launch of the kernel K3
+(``loam_kernels.gn_loop_fused``); its plain version ``gn_loop_stepwise`` is
+the same loop driven from Python through the linearization kernels K1/K2
+(their plain versions for CPU tensors). The functions below
 (``fit_planes``, ``plane_normal_equations``,
 ``normal_equations_from_candidates``) are the same math on an explicit
 candidate tensor, as the reference package states it.
@@ -58,11 +60,14 @@ DEGEN_EIGEN_PER_ROW = 0.02
 
 
 class LoamResult(NamedTuple):
-    pose: torch.Tensor   # (4, 4) refined pose, on the device
-    converged: bool
-    iters: int           # iterations executed
-    n_valid: int         # valid rows in the last normal equations
-    n_gathers: int       # gather + plane-fit passes (incl. the initial one)
+    """All fields stay on the pose's device (the counts as 0-dim tensors), so
+    a caller decides when to read them."""
+
+    pose: torch.Tensor       # (4, 4) refined pose
+    converged: torch.Tensor  # () bool
+    iters: torch.Tensor      # () int32 iterations executed
+    n_valid: torch.Tensor    # () int32 valid rows in the last normal equations
+    n_gathers: torch.Tensor  # () int32 gather + plane-fit passes (incl. the first)
 
 
 class Planes(NamedTuple):
@@ -192,10 +197,10 @@ def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
     return torch.linalg.solve(JtJ_safe, -JtE)
 
 
-def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
-            max_iters: int = MAX_ITERS,
-            degen_per_row: float = 0.0) -> LoamResult:
-    """The full GN loop (reference ``LoamRegister::scan2Map``).
+def gn_loop_stepwise(src: PointCloud, vm: MergedDenseVoxelMap,
+                     init_pose: torch.Tensor, max_iters: int = MAX_ITERS,
+                     degen_per_row: float = 0.0) -> LoamResult:
+    """The GN loop driven from Python: the plain version of the kernel K3.
 
     K1 (``fit_and_linearize_merged``) gathers, fits the plane set and
     linearizes at the start pose and on every refresh; K2
@@ -205,10 +210,12 @@ def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
     pose in the same iteration.
 
     One host read per iteration decides the loop (converged, starved, moved
-    past REGATHER_DIST); the 6x6 solve stays on the device.
+    past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors only.
     """
     from . import loam_kernels as lk
 
+    if init_pose.is_cuda:
+        lk.K3_PLAIN_CUDA_CALLS += 1
     pose = init_pose.to(torch.float32)
     sqrt_r = source_sqrt_range(src)
     r_max = torch.amax(torch.where(src.mask, torch.linalg.norm(src.xyz, dim=-1),
@@ -231,11 +238,10 @@ def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
         dt = torch.linalg.norm(pose[:3, 3] - anchor[:3, 3])
         cos_a = (torch.trace(anchor[:3, :3].T @ pose[:3, :3]) - 1.0) * 0.5
         moved = dt + r_max * torch.arccos(torch.clamp(cos_a, -1.0, 1.0))
-        state = torch.stack([(conv & enough).to(torch.float32),
-                             (~enough).to(torch.float32), moved,
-                             n_valid.to(torch.float32)]).cpu()
-        converged, failed = bool(state[0]), bool(state[1])
-        if converged or failed or iters >= max_iters:
+        converged = conv & enough
+        state = torch.stack([converged.to(torch.float32),
+                             (~enough).to(torch.float32), moved]).cpu()
+        if bool(state[0]) or bool(state[1]) or iters >= max_iters:
             break
         p_map = geo.transform_points(pose, src.xyz)
         if float(state[2]) > REGATHER_DIST:
@@ -245,8 +251,33 @@ def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
             gathers += 1
         else:
             JtJ, JtE, n_valid = lk.plane_normal_equations(planes, p_map, sqrt_r)
-    return LoamResult(geo.reorthonormalize(pose), converged, iters,
-                      int(state[3]), gathers)
+    counts = torch.tensor([iters, gathers], dtype=torch.int32,
+                          device=pose.device)
+    return LoamResult(geo.reorthonormalize(pose), converged, counts[0],
+                      n_valid, counts[1])
+
+
+def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
+            max_iters: int = MAX_ITERS,
+            degen_per_row: float = 0.0) -> LoamResult:
+    """The full GN loop (reference ``LoamRegister::scan2Map``).
+
+    On CUDA tensors the whole loop is one launch of K3
+    (``loam_kernels.gn_loop_fused``), with no host read; a failed build or
+    launch raises. On CPU tensors it is K3's plain version,
+    ``gn_loop_stepwise``.
+    """
+    if not init_pose.is_cuda:
+        return gn_loop_stepwise(src, vm, init_pose, max_iters, degen_per_row)
+    from . import loam_kernels as lk
+
+    row = lk.gn_loop_fused(src.xyz, src.mask, vm,
+                           init_pose.to(torch.float32).contiguous(),
+                           max_iters, degen_per_row)
+    counts = row.to(torch.int32)
+    return LoamResult(row[:16].view(4, 4), row[lk.GN_CONVERGED] > 0.5,
+                      counts[lk.GN_ITERS], counts[lk.GN_N_VALID],
+                      counts[lk.GN_GATHERS])
 
 
 def scan2map(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,

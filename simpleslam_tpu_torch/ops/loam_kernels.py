@@ -1,7 +1,7 @@
 """Wrappers of the LOAM CUDA kernels (``csrc/loam_kernels.cu``), their plain
 PyTorch versions, and launch counters.
 
-Both kernels replace the Pallas TPU kernel
+The kernels replace the Pallas TPU kernel
 ``simpleslam_tpu/ops/loam_pallas.py::_kernel`` (via ``normal_equations_t``):
 
 - K1 ``fit_and_linearize_merged``: the whole TPU kernel with the merged-row
@@ -11,6 +11,13 @@ Both kernels replace the Pallas TPU kernel
   1,152 B row reads plus per-query selection work.
 - K2 ``plane_normal_equations``: the TPU kernel's second half against a
   frozen plane set. Bound on the card: launch overhead and a (Q, 6) stream.
+- K3 ``gn_loop_fused``: a scan's whole Gauss-Newton registration in one
+  cooperative launch, with K1's and K2's bodies as its phases and the 6x6
+  solve, the pose update and the loop tests (``csrc/gn_step.h``) between
+  them, where the TPU package wraps the kernel in one ``lax.while_loop``.
+  Bound on the card: the row reads of its K1 phases. Its plain version is
+  ``loam.gn_loop_stepwise``, the same loop driven from Python through K1 and
+  K2 with one host read per iteration.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built at first use) or raises. Nothing falls back.
@@ -20,6 +27,8 @@ The counters count kernel launches, and plain-version calls on CUDA tensors
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import loam
@@ -28,13 +37,21 @@ from .voxel import MergedDenseVoxelMap, gather_neighbors_merged
 
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
+K3_LAUNCHES = 0
 K1_PLAIN_CUDA_CALLS = 0
 K2_PLAIN_CUDA_CALLS = 0
+K3_PLAIN_CUDA_CALLS = 0   # loam.gn_loop_stepwise on CUDA tensors
+
+# K3's result row: the pose (4x4 row-major), then these
+GN_ROW = 20
+GN_CONVERGED, GN_ITERS, GN_GATHERS, GN_N_VALID = 16, 17, 18, 19
 
 
 def reset_counts() -> None:
-    global K1_LAUNCHES, K2_LAUNCHES, K1_PLAIN_CUDA_CALLS, K2_PLAIN_CUDA_CALLS
-    K1_LAUNCHES = K2_LAUNCHES = K1_PLAIN_CUDA_CALLS = K2_PLAIN_CUDA_CALLS = 0
+    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES
+    global K1_PLAIN_CUDA_CALLS, K2_PLAIN_CUDA_CALLS, K3_PLAIN_CUDA_CALLS
+    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = 0
+    K1_PLAIN_CUDA_CALLS = K2_PLAIN_CUDA_CALLS = K3_PLAIN_CUDA_CALLS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +111,23 @@ def _outputs(dev: torch.device):
             torch.empty((), dtype=torch.int32, device=dev))
 
 
+def _check_map(vm: MergedDenseVoxelMap, lib, dev) -> int:
+    """Validate the merged map for the kernels; returns candidates per query."""
+    gx, gy, gz = vm.dims
+    n_cand = 8 * vm.slab_pts
+    if n_cand > lib.loam_max_candidates():
+        raise ValueError(f"{n_cand} candidates per query exceed the kernel's "
+                         f"{lib.loam_max_candidates()}")
+    _check("vm.rows", vm.rows, torch.int16,
+           ((gx + 1) * (gy + 1) * (gz + 1) + 1, n_cand * 3), dev)
+    if vm.rows.data_ptr() % 16 or (n_cand * 3 * 2) % 16:
+        raise ValueError("vm.rows must be 16-byte aligned, row by row")
+    _check("vm.scale", vm.scale, torch.float32, (), dev)
+    _check("vm.corner", vm.corner, torch.float32, (3,), dev)
+    _check("vm.grid", vm.grid, torch.float32, (), dev)
+    return n_cand
+
+
 def fit_and_linearize_merged(vm: MergedDenseVoxelMap, p_map: torch.Tensor,
                              sqrt_r: torch.Tensor, mask: torch.Tensor):
     """K1: gather + 5-NN + plane fit + normal equations at the pose that
@@ -111,17 +145,7 @@ def fit_and_linearize_merged(vm: MergedDenseVoxelMap, p_map: torch.Tensor,
     lib = library()
     n_q = p_map.shape[0]
     gx, gy, gz = vm.dims
-    n_cand = 8 * vm.slab_pts
-    if n_cand > lib.loam_max_candidates():
-        raise ValueError(f"{n_cand} candidates per query exceed the kernel's "
-                         f"{lib.loam_max_candidates()}")
-    _check("vm.rows", vm.rows, torch.int16,
-           ((gx + 1) * (gy + 1) * (gz + 1) + 1, n_cand * 3), dev)
-    if vm.rows.data_ptr() % 16:
-        raise ValueError("vm.rows must be 16-byte aligned")
-    _check("vm.scale", vm.scale, torch.float32, (), dev)
-    _check("vm.corner", vm.corner, torch.float32, (3,), dev)
-    _check("vm.grid", vm.grid, torch.float32, (), dev)
+    n_cand = _check_map(vm, lib, dev)
     _check("p_map", p_map, torch.float32, (n_q, 3), dev)
     _check("sqrt_r", sqrt_r, torch.float32, (n_q,), dev)
     _check("mask", mask, torch.bool, (n_q,), dev)
@@ -172,3 +196,90 @@ def plane_normal_equations(planes: Planes, p_map: torch.Tensor,
     _raise_on(err, "plane_normal_equations")
     K2_LAUNCHES += 1
     return jtj, jte, nv
+
+
+# K3's workspace per (device, stream): the blocks' partial sums (two
+# alternating buffers) and the grid barrier's two counters, which the kernel
+# leaves at zero. Launches on one stream run in order, so they share it;
+# another stream (another thread's work) gets its own.
+_gn_workspaces: dict = {}
+_gn_lock = threading.Lock()
+
+# dynamic shared memory a block can get on Hopper (227 KB)
+_SMEM_MAX = 232448
+
+
+def _gn_workspace(lib, dev: torch.device, stream: int):
+    key = (dev.index, stream)
+    with _gn_lock:
+        ws = _gn_workspaces.get(key)
+        if ws is None:
+            grid = lib.loam_gn_loop_grid()
+            if grid <= 0:
+                raise RuntimeError("gn_loop_fused: could not size the "
+                                   "cooperative grid on this device")
+            partials = torch.zeros(
+                (2, grid, lib.loam_gn_loop_partial_stride()),
+                dtype=torch.float32, device=dev)
+            counters = torch.zeros((2,), dtype=torch.int32, device=dev)
+            ws = _gn_workspaces[key] = (partials, counters)
+        return ws
+
+
+def gn_loop_fused(xyz: torch.Tensor, mask: torch.Tensor,
+                  vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
+                  max_iters: int, degen_per_row: float) -> torch.Tensor:
+    """K3: the whole GN registration of one scan, ``xyz`` (Q, 3) sensor-frame
+    points with validity ``mask`` (Q,), against the merged map from
+    ``init_pose`` (4, 4), in one launch. Returns the (GN_ROW,) f32 result
+    row on the device: the re-orthonormalized pose (16), then converged,
+    iterations, gathers and the last linearization's n_valid.
+
+    CUDA tensors only: the plain version of this kernel is the Python loop
+    ``loam.gn_loop_stepwise``, which ``loam.gn_loop`` runs for CPU tensors.
+    """
+    global K3_LAUNCHES
+    dev = xyz.device
+    if dev.type != "cuda":
+        raise ValueError(f"gn_loop_fused: unsupported device {dev}")
+    if max_iters < 1:
+        raise ValueError("gn_loop_fused: max_iters must be at least 1")
+    from ._build import library
+
+    lib = library()
+    n_q = xyz.shape[0]
+    gx, gy, gz = vm.dims
+    n_cand = _check_map(vm, lib, dev)
+    _check("xyz", xyz, torch.float32, (n_q, 3), dev)
+    _check("mask", mask, torch.bool, (n_q,), dev)
+    _check("init_pose", init_pose, torch.float32, (4, 4), dev)
+    with torch.cuda.device(dev):
+        smem = lib.loam_gn_loop_smem(n_q)
+        if not 0 <= smem <= _SMEM_MAX:
+            raise ValueError(f"gn_loop_fused: {n_q} queries need {smem} bytes "
+                             f"of shared memory per block (limit {_SMEM_MAX})")
+        stream = _stream(dev)
+        partials, counters = _gn_workspace(lib, dev, stream)
+        out = torch.empty((GN_ROW,), dtype=torch.float32, device=dev)
+        err = lib.loam_gn_loop(
+            vm.rows.data_ptr(), n_cand, vm.scale.data_ptr(),
+            vm.corner.data_ptr(), vm.grid.data_ptr(), gx, gy, gz,
+            xyz.data_ptr(), mask.data_ptr(), n_q, init_pose.data_ptr(),
+            int(max_iters), float(degen_per_row), partials.data_ptr(),
+            counters.data_ptr(), out.data_ptr(), stream)
+    _raise_on(err, "gn_loop_fused")
+    K3_LAUNCHES += 1
+    return out
+
+
+def barrier_probe(dev: torch.device, n: int) -> None:
+    """Launch ``n`` grid barriers on K3's grid and nothing else (a
+    measurement aid: the barrier's cost per GN iteration)."""
+    from ._build import library
+
+    lib = library()
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        _, counters = _gn_workspace(lib, dev, stream)
+        err = lib.loam_barrier_probe(counters.data_ptr(), int(n), stream)
+    _raise_on(err, "barrier_probe")

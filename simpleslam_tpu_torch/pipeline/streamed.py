@@ -10,8 +10,9 @@ Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo mode, one device):
   submap targets are rebuilt on the device from it (``update_map_device``),
   double-buffered behind the next registration batch;
 - K scans run as one batch (``_batch_body``): the constant-velocity
-  prediction (step capped at ``STEP_CAP``), ``loam.gn_loop`` (kernels K1/K2
-  on CUDA), the planar clamp and the NaN guard, with the pose chain
+  prediction (step capped at ``STEP_CAP``), ``loam.gn_loop`` (one launch of
+  the kernel K3 per scan on CUDA), the planar clamp and the NaN guard, with
+  no host read in between and the pose chain
   (``pose_prev``, ``pose_prev2``, ``odom2map``) kept in device tensors that
   feed the next batch directly. The batch's packed (K, 21) result rows are
   read back once, when the batch retires;
@@ -24,8 +25,8 @@ Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo mode, one device):
   re-based on its anchor keyframe's final pose at shutdown.
 
 The reference's one-program ``lax.scan`` over the batch is a Python loop
-over its scans here; each GN iteration still reads its exit test to the host
-(``loam.gn_loop``). Not ported yet: lio mode (``_LocalOdomFeeder``, ROADMAP
+over its scans here that only enqueues device work (the GN loop and its exit
+tests run inside K3). Not ported yet: lio mode (``_LocalOdomFeeder``, ROADMAP
 item 9) and the mesh-sharded batch (``tpu.mesh_devices``, item 12).
 """
 
@@ -80,8 +81,12 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
     UPLOAD_PAD sentinel). Returns ((pose_K, pose_{K-1}, odom2map), packed
     (K, 21)), a packed row being [pose16, converged, fitness, gn_iters,
     gn_gathers, n_valid]. ``odom2map`` passes through in lo mode.
+
+    Nothing in here reads a value from the device: every decision (the NaN
+    guard, the jump rejection) is a ``torch.where``, so on the GPU the K
+    registrations queue up behind each other and the batch's one host read
+    is that of its packed rows when it retires.
     """
-    dev = pose_prev.device
     rows = []
     prev, prev2 = pose_prev, pose_prev2
     for raw_q in ds_stack:
@@ -107,14 +112,13 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
         ok = torch.all(torch.isfinite(pose))
         if jump_cap > 0:
             jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
-            ok = ok & (jump <= (jump_cap if conv else jump_cap / 3.0))
+            ok = ok & (jump <= torch.where(conv, jump_cap, jump_cap / 3.0))
         pose = torch.where(ok, pose, init)
-        conv_t = ok & conv
-        stats = torch.tensor([iters, gathers, support], dtype=torch.float32,
-                             device=dev)
-        rows.append(torch.cat([pose.reshape(16),
-                               conv_t.to(torch.float32).reshape(1),
-                               fit.reshape(1).to(torch.float32), stats]))
+        tail = torch.stack([(ok & conv).to(torch.float32),
+                            fit.to(torch.float32), iters.to(torch.float32),
+                            gathers.to(torch.float32),
+                            support.to(torch.float32)])
+        rows.append(torch.cat([pose.reshape(16), tail]))
         prev2, prev = prev, pose
     return (prev, prev2, odom2map), torch.stack(rows)
 

@@ -10,6 +10,15 @@ versions of the CUDA kernels K1 (``fit_and_linearize_merged``) and K2
 of tests/test_loam_pallas.py: J^T J within 2e-5 max|J^T J|, J^T e within
 5e-4 max|J^T e| (f32 sums in another order), identical n_valid.
 
+The small step of the fused GN kernel K3 (``csrc/gn_step.h``: the 6x6 LU
+solve, the Jacobi eigensolve of the degeneracy guard, ``se3_exp``, the
+compose, the motion test and the re-orthonormalization) is compiled for the
+host and held against ``loam._solve`` and the torch pose update: dx within
+1e-5 relative and poses within 1e-6 on a well-conditioned system, and no
+further from the float64 solution than twice torch's own error on the
+scene's ill-conditioned ones; a Python loop that takes its steps through
+that code must reproduce ``gn_loop_stepwise``.
+
 The kernels themselves only run on a CUDA device: those tests carry the
 ``cuda`` marker and skip without one.
 """
@@ -24,6 +33,7 @@ from simpleslam_tpu.ops import loam_pallas
 from simpleslam_tpu.ops import pointcloud as jpc
 from simpleslam_tpu.ops import voxel as jvox
 from simpleslam_tpu.pipeline import simulate as sim
+from simpleslam_tpu_torch import native
 from simpleslam_tpu_torch.ops import geometry as tgeo
 from simpleslam_tpu_torch.ops import loam as tloam
 from simpleslam_tpu_torch.ops import loam_kernels as lk
@@ -161,15 +171,216 @@ def test_scan2map_parity(scene, degen):
         tgeo.so3_exp(torch.tensor([0.0, 0.0, 0.03])))
     ref = jloam.scan2map(ds, vm, jnp.asarray(start), degen_per_row=degen)
     out = tloam.scan2map(tds, tvm, torch.tensor(start), degen_per_row=degen)
-    assert out.converged == bool(ref.converged)
-    assert out.iters == int(ref.iters) and out.iters > 1
-    assert out.n_gathers == int(ref.n_gathers)
+    # the counts stay tensors on the pose's device: nothing forces a read
+    for field in (out.converged, out.iters, out.n_valid, out.n_gathers):
+        assert isinstance(field, torch.Tensor) and field.dim() == 0
+        assert field.device == out.pose.device
+    assert out.converged.dtype == torch.bool
+    assert bool(out.converged) == bool(ref.converged)
+    assert int(out.iters) == int(ref.iters) and int(out.iters) > 1
+    assert int(out.n_gathers) == int(ref.n_gathers)
+    assert int(out.n_valid) == int(ref.n_valid)
     p_j, p_t = np.asarray(ref.pose), out.pose.numpy()
     assert np.linalg.norm(p_t[:3, 3] - p_j[:3, 3]) < 1e-3
     dR = p_j[:3, :3].T @ p_t[:3, :3]
     assert np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)) < 1e-3
     if degen == 0.0:  # the guard holds weak directions at the prediction
         assert np.linalg.norm(p_t[:3, 3] - pose[:3, 3]) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's small step (csrc/gn_step.h), compiled for the host
+# ---------------------------------------------------------------------------
+
+def _start_pose(scene):
+    start = scene[4].copy()
+    start[:3, 3] += np.array([0.3, -0.2, 0.0], np.float32)
+    start[:3, :3] = start[:3, :3] @ np.asarray(
+        tgeo.so3_exp(torch.tensor([0.0, 0.0, 0.03])))
+    return start
+
+
+def _scene_equations(scene, pose):
+    _, _, tds, tvm, _ = scene
+    p_map = tgeo.transform_points(torch.tensor(pose), tds.xyz)
+    return lk.fit_and_linearize_merged(
+        tvm, p_map, tloam.source_sqrt_range(tds), tds.mask)[:3]
+
+
+def _torch_step(JtJ, JtE, n_valid, degen, pose, anchor, r_max):
+    """One iteration of ``gn_loop_stepwise`` after its linearization."""
+    enough = n_valid >= tloam.MIN_VALID_ROWS
+    dx = tloam._solve(JtJ, JtE, n_valid, enough, degen)
+    conv = (torch.linalg.norm(dx[:3]) <= tloam.POS_CONVERGE) & (
+        torch.linalg.norm(dx[3:]) <= tloam.ROT_CONVERGE)
+    pose = torch.where(conv | ~enough, pose,
+                       tgeo.pose_compose(tgeo.se3_exp(dx), pose))
+    dt = torch.linalg.norm(pose[:3, 3] - anchor[:3, 3])
+    cos_a = (torch.trace(anchor[:3, :3].T @ pose[:3, :3]) - 1.0) * 0.5
+    moved = dt + r_max * torch.arccos(torch.clamp(cos_a, -1.0, 1.0))
+    return dx, pose, bool(conv), bool(enough), float(moved)
+
+
+def _solve_f64(JtJ, JtE, n_valid, degen):
+    """``loam._solve`` in float64: the yardstick both f32 solves are held to."""
+    enough = n_valid >= tloam.MIN_VALID_ROWS
+    A = JtJ.numpy().astype(np.float64) + np.eye(6) * (not enough)
+    b = -JtE.numpy().astype(np.float64)
+    if degen > 0:
+        w, V = np.linalg.eigh(A)
+        y = V.T @ b
+        return V @ np.where(w > degen * n_valid * enough,
+                            y / np.maximum(w, 1e-12), 0.0)
+    return np.linalg.solve(A, b)
+
+
+@pytest.mark.parametrize("case", ["well-conditioned", "scene", "starved",
+                                  "guard", "guard-near-singular",
+                                  "near-singular", "converged"])
+def test_gn_step_matches_torch(scene, case):
+    """The in-kernel solve against ``loam._solve``: on a well-conditioned
+    system (the scene's equations, diagonally equilibrated and damped) dx agrees within
+    1e-5 of |dx| and the updated pose within 1e-6. The scene's raw equations
+    have a condition number near 5e5 (few rows at the offset start; rotation
+    columns scale with range), where two f32 factorizations differ by more
+    than that: there each is held to the float64 solution, the in-kernel one
+    to no more than twice torch's error or a thousandth of the worst-case
+    bound eps * cond. Same flags; the motion test within
+    1e-3 m (arccos near 1 in f32)."""
+    pose = _start_pose(scene)
+    JtJ, JtE, n_valid = _scene_equations(scene, pose)
+    degen = tloam.DEGEN_EIGEN_PER_ROW if case.startswith("guard") else 0.0
+    if case == "well-conditioned":
+        d = 1.0 / torch.sqrt(torch.diagonal(JtJ))
+        JtJ = JtJ * d[:, None] * d[None, :] + 0.05 * torch.eye(6)
+        JtE = JtE * d * 0.1
+        assert torch.linalg.cond(JtJ) < 200
+    if case == "starved":
+        n_valid = torch.tensor(3, dtype=torch.int32)
+    if case.endswith("near-singular"):
+        # squash one direction of the normal equations: a corridor
+        w, V = torch.linalg.eigh(JtJ)
+        w = w.clone()
+        w[0] = w[-1] * 1e-6
+        JtJ = (V * w) @ V.T
+        JtJ = 0.5 * (JtJ + JtJ.T)
+    if case == "converged":
+        JtE = JtE * 1e-4
+    anchor = scene[4]
+    got = native.gn_step(JtJ.numpy(), JtE.numpy(), int(n_valid), degen, pose,
+                         anchor, 42.0)
+    ref = _torch_step(JtJ, JtE, n_valid, degen, torch.tensor(pose),
+                      torch.tensor(anchor), torch.tensor(42.0))
+    truth = _solve_f64(JtJ, JtE, int(n_valid), degen)
+    scale = np.linalg.norm(truth)
+    e_got = np.abs(got[0] - truth).max()
+    e_ref = np.abs(ref[0].numpy() - truth).max()
+    print(f"{case}: |dx| {scale:.3e}, error of gn_step.h {e_got:.3e}, of "
+          f"torch {e_ref:.3e}")
+    cond = float(torch.linalg.cond(JtJ)) if case != "starved" else 1.0
+    eps = float(np.finfo(np.float32).eps)
+    assert e_got <= max(2.0 * e_ref, (1e-5 + 1e-3 * eps * cond) * scale)
+    if case == "well-conditioned":
+        assert np.abs(got[0] - ref[0].numpy()).max() <= 1e-5 * scale
+    np.testing.assert_allclose(got[1], ref[1].numpy(),
+                               atol=1e-6 + 2.0 * (e_got + e_ref))
+    assert got[2:4] == ref[2:4]
+    assert got[2] == (case == "converged")
+    assert got[3] == (case != "starved")
+    assert abs(got[4] - ref[4]) < 1e-3 + 50.0 * (e_got + e_ref)
+    if case in ("starved", "converged"):   # the loop stops before the update
+        np.testing.assert_array_equal(got[1], pose)
+
+
+def test_gn_step_zero_pivot_is_non_finite_not_an_error():
+    """A singular system gives a non-finite step (the streamed batch's NaN
+    guard takes it), where ``torch.linalg.solve`` raises."""
+    dx, pose, conv, enough, _ = native.gn_step(
+        np.zeros((6, 6), np.float32), np.ones(6, np.float32), 10, 0.0,
+        np.eye(4), np.eye(4), 1.0)
+    assert not np.isfinite(dx).all() and not conv and enough
+    assert not np.isfinite(pose).all()
+    with pytest.raises(RuntimeError):
+        torch.linalg.solve(torch.zeros(6, 6), torch.ones(6))
+
+
+def test_jacobi_eigensolve_matches_eigh(scene):
+    JtJ = _scene_equations(scene, scene[4])[0].numpy()
+    w, V = native.jacobi_eig6(JtJ)
+    order = np.argsort(w)
+    w_ref = np.linalg.eigvalsh(JtJ.astype(np.float64))
+    np.testing.assert_allclose(w[order], w_ref, rtol=1e-5,
+                               atol=1e-6 * w_ref[-1])
+    np.testing.assert_allclose(V.T @ V, np.eye(6), atol=1e-5)
+    np.testing.assert_allclose((V * w) @ V.T, JtJ,
+                               atol=2e-6 * np.abs(JtJ).max())
+
+
+def test_gn_finish_matches_reorthonormalize(scene):
+    pose = _start_pose(scene)
+    pose[:3, :3] += np.float32(1e-3) * np.arange(9, dtype=np.float32
+                                                 ).reshape(3, 3)
+    for flip in (np.eye(3), np.diag([1.0, -1.0, -1.0]),
+                 np.diag([-1.0, 1.0, -1.0]), np.diag([-1.0, -1.0, 1.0])):
+        # rotations by pi about each axis reach every Shepperd branch
+        p = pose.copy()
+        p[:3, :3] = (p[:3, :3] @ flip).astype(np.float32)
+        ref = tgeo.reorthonormalize(torch.tensor(p)).numpy()
+        np.testing.assert_allclose(native.gn_finish(p), ref, atol=1e-6)
+
+
+@pytest.mark.parametrize("degen", [0.0, tloam.DEGEN_EIGEN_PER_ROW],
+                         ids=["plain-solve", "degeneracy-guard"])
+def test_gn_step_drives_the_loop(scene, degen):
+    """The fused kernel's control flow in Python: K1/K2's plain versions for
+    the linearization, ``csrc/gn_step.h`` for everything between. Same
+    iterations, gathers and n_valid as ``gn_loop_stepwise``, pose within
+    1e-4 (the two f32 solves differ by a few 1e-5 of |dx| per step on this
+    ill-conditioned scene)."""
+    _, _, tds, tvm, _ = scene
+    start = _start_pose(scene)
+    ref = tloam.gn_loop_stepwise(tds, tvm, torch.tensor(start),
+                                 degen_per_row=degen)
+    sqrt_r = tloam.source_sqrt_range(tds)
+    r_max = float(torch.linalg.norm(tds.xyz, dim=-1)[tds.mask].max())
+    pose, anchor = start.copy(), start.copy()
+    iters = gathers = 0
+    refit, planes = True, None
+    while True:
+        p_map = tgeo.transform_points(torch.tensor(pose), tds.xyz)
+        if refit:
+            JtJ, JtE, nv, planes = lk.fit_and_linearize_merged(
+                tvm, p_map, sqrt_r, tds.mask)
+            gathers += 1
+        else:
+            JtJ, JtE, nv = lk.plane_normal_equations(planes, p_map, sqrt_r)
+        _, pose, conv, enough, moved = native.gn_step(
+            JtJ.numpy(), JtE.numpy(), int(nv), degen, pose, anchor, r_max)
+        iters += 1
+        if (conv and enough) or not enough or iters >= tloam.MAX_ITERS:
+            break
+        refit = moved > tloam.REGATHER_DIST
+        if refit:
+            anchor = pose.copy()
+    assert (iters, gathers, int(nv)) == (int(ref.iters), int(ref.n_gathers),
+                                         int(ref.n_valid))
+    assert bool(ref.converged) == (conv and enough)
+    assert iters > 1 and gathers > 1
+    np.testing.assert_allclose(native.gn_finish(pose), ref.pose.numpy(),
+                               atol=1e-4)
+
+
+def test_gn_loop_on_cpu_is_the_stepwise_loop(scene):
+    """``gn_loop`` takes K3's plain version for CPU tensors, and counts no
+    plain call "on CUDA"; K3's wrapper itself refuses a CPU tensor."""
+    _, _, tds, tvm, pose = scene
+    before = (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS)
+    a = tloam.gn_loop(tds, tvm, torch.tensor(pose))
+    b = tloam.gn_loop_stepwise(tds, tvm, torch.tensor(pose))
+    assert torch.equal(a.pose, b.pose) and int(a.iters) == int(b.iters)
+    assert (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk.gn_loop_fused(tds.xyz, tds.mask, tvm, torch.tensor(pose), 8, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -221,3 +432,34 @@ def test_wrappers_refuse_bad_inputs(scene):
     meta = torch.empty((p_map.shape[0], 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lk.fit_and_linearize_merged(tvm, meta, meta[:, 0], meta[:, 0].bool())
+
+
+def _rot_angle(Ra, Rb):
+    dR = Ra.astype(np.float64).T @ Rb.astype(np.float64)
+    return 0.5 * np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
+                                 dR[1, 0] - dR[0, 1]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degen", [0.0, tloam.DEGEN_EIGEN_PER_ROW],
+                         ids=["plain-solve", "degeneracy-guard"])
+@pytest.mark.parametrize("which", ["on-pose", "perturbed"])
+def test_fused_loop_matches_stepwise(cuda_scene, which, degen):
+    """K3 against its plain version on the card: the same counts, the pose
+    within 1e-4 m and 1e-5 rad, and bit-identical across two launches."""
+    vm, src, pose = cuda_scene
+    if which == "perturbed":
+        pose = pose.clone()
+        pose[:3, 3] += torch.tensor(OFFSET, device=pose.device)
+    before = lk.K3_LAUNCHES
+    got = tloam.gn_loop(src, vm, pose, degen_per_row=degen)
+    again = tloam.gn_loop(src, vm, pose, degen_per_row=degen)
+    assert lk.K3_LAUNCHES == before + 2
+    ref = tloam.gn_loop_stepwise(src, vm, pose, degen_per_row=degen)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (int(got.iters), int(got.n_gathers), int(got.n_valid),
+            bool(got.converged)) == (int(ref.iters), int(ref.n_gathers),
+                                     int(ref.n_valid), bool(ref.converged))
+    p, q = got.pose.cpu().numpy(), ref.pose.cpu().numpy()
+    assert np.linalg.norm(p[:3, 3] - q[:3, 3]) < 1e-4
+    assert _rot_angle(p[:3, :3], q[:3, :3]) < 1e-5

@@ -11,6 +11,11 @@
 - the step cap: a chain seeded with a 100 m disagreement advances at most
   STEP_CAP per scan (test_streamed.py's case, on the port's batch), with
   and without the optional jump rejection.
+- the batch body reads nothing from the device: its packed rows on a seeded
+  two-scan batch equal, bit for bit, those of the earlier formulation that
+  branched in Python on each scan's converged flag and counts (with the
+  optional jump rejection off, accepting and rejecting); on a CUDA device it
+  runs under ``torch.cuda.set_sync_debug_mode("error")``.
 - ``tpu.sync_backend``: two runs of ``str30det3`` give bit-identical poses.
 - the full chain: tests/test_pipeline_lc.py's courtyard world, config and
   cached ``lc_courtyard`` sequence through the port (backend + ScanContext
@@ -26,8 +31,11 @@ from simpleslam_tpu.pipeline import app as japp
 from simpleslam_tpu.pipeline import simulate as sim
 from simpleslam_tpu.pipeline.streamed import run_streamed as j_run_streamed
 from simpleslam_tpu.utils.config import Params as JParams
+from simpleslam_tpu_torch import native
 from simpleslam_tpu_torch.models.backend import LC_VAR
 from simpleslam_tpu_torch.models.registration import make_register
+from simpleslam_tpu_torch.ops import geometry as tgeo
+from simpleslam_tpu_torch.ops import loam as tloam
 from simpleslam_tpu_torch.ops import loam_kernels as lk
 from simpleslam_tpu_torch.ops import pointcloud as tpc
 from simpleslam_tpu_torch.pipeline import app as tapp
@@ -158,6 +166,120 @@ def test_velocity_step_cap_bounds_runaway_chain(jump_cap):
     final = pN.numpy()[:3, 3]
     assert np.isfinite(final).all() and np.isfinite(packed.numpy()).all()
     assert np.linalg.norm(final) <= 100.0 + 4 * tst.STEP_CAP + 1e-3
+
+
+def _batch_body_with_host_branches(ds_stack, target, pose_prev, pose_prev2,
+                                   clamp, degen, jump_cap):
+    """``_batch_body`` as it was formulated before it stopped reading device
+    values: Python branches on each scan's converged flag, a stats row made
+    from Python numbers."""
+    rows = []
+    prev, prev2 = pose_prev, pose_prev2
+    for raw_q in ds_stack:
+        pc = tst.upload_cloud(raw_q)
+        step = tgeo.pose_compose(tgeo.pose_inverse(prev2), prev)
+        st_t = step[:3, 3]
+        scale = torch.clamp(
+            tst.STEP_CAP / torch.clamp(torch.linalg.norm(st_t), min=1e-9),
+            max=1.0)
+        init = tgeo.pose_compose(prev, tgeo.make_pose(step[:3, :3],
+                                                      st_t * scale))
+        res = tloam.gn_loop_stepwise(pc, target, init, degen_per_row=degen)
+        pose, conv = res.pose, bool(res.converged)
+        if clamp:
+            pose = tgeo.six_dof_to_mobile(pose)
+        ok = torch.all(torch.isfinite(pose))
+        if jump_cap > 0:
+            jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
+            ok = ok & (jump <= (jump_cap if conv else jump_cap / 3.0))
+        pose = torch.where(ok, pose, init)
+        conv_t = ok & torch.tensor(conv)
+        stats = torch.tensor([int(res.iters), int(res.n_gathers),
+                              int(res.n_valid)], dtype=torch.float32)
+        rows.append(torch.cat([pose.reshape(16),
+                               conv_t.to(torch.float32).reshape(1),
+                               torch.zeros(1), stats]))
+        prev2, prev = prev, pose
+    return (prev, prev2), torch.stack(rows)
+
+
+@pytest.fixture(scope="module")
+def two_scan_batch():
+    """A target from the first scan of a seeded sequence and the next two
+    scans prepped as the executor preps them; the chain starts 0.2 m off."""
+    TParams.load(dict(LO_CFG, backend={"enable": False},
+                      torch={"device": "cpu"}))
+    reg = make_register()
+    world = sim.make_world(seed=3)
+    streams = sim.cache_streams(
+        "str30det3", lambda: sim.simulate_sequence(world, n_scans=30, seed=3))
+    p0 = streams.gt_poses[0]
+    sub = streams.scans[0] @ p0[:3, :3].T + p0[:3, 3]
+    _, target = reg.build_target_from_raw(
+        tpc.from_numpy(sub.astype(np.float32), 16384, "cpu"), 0.5,
+        torch.tensor(p0[:3, 3].astype(np.float32)), 16384)
+    rows, _ = native.voxel_downsample_sort_quant_batch(
+        [np.asarray(streams.scans[i], np.float32) for i in (1, 2)], 0.5, 2048,
+        float(reg.TARGET_GRID), tst.UPLOAD_SCALE)
+    start = streams.gt_poses[0].astype(np.float32)
+    start[:3, 3] += np.array([0.2, -0.1, 0.0], np.float32)
+    TParams.reset()
+    return target, torch.from_numpy(rows), torch.tensor(start)
+
+
+@pytest.mark.parametrize("jump_cap", [0.0, 10.0, 0.02],
+                         ids=["no_jump_cap", "jump_accepted", "jump_rejected"])
+def test_batch_body_rows_equal_host_branch_formulation(two_scan_batch,
+                                                       jump_cap):
+    target, rows, start = two_scan_batch
+    eye = torch.eye(4)
+    (pN, pN1, o2m), packed = tst._batch_body(
+        rows, target, start, start, eye, kind="loam", clamp=True, degen=0.0,
+        jump_cap=jump_cap)
+    (qN, qN1), ref = _batch_body_with_host_branches(
+        rows, target, start, start, True, 0.0, jump_cap)
+    assert packed.shape == (2, 21) and packed.dtype == torch.float32
+    assert torch.equal(packed, ref)
+    assert torch.equal(pN, qN) and torch.equal(pN1, qN1)
+    assert torch.equal(o2m, eye)
+    assert packed[0, 18] > 1 and packed[0, 20] > 30   # iterations, support
+    moved = torch.linalg.norm(packed[0, :16].view(4, 4)[:3, 3] - start[:3, 3])
+    if jump_cap == 0.02:   # the 0.2 m correction is rejected: the prediction
+        assert packed[0, 16] == 0 and moved == 0
+    else:
+        assert packed[0, 16] == 1 and moved > 0.1
+
+
+@pytest.mark.cuda
+def test_batch_body_makes_no_host_sync(two_scan_batch):
+    """On the card the batch body runs with sync debugging set to raise: no
+    device value is read before the packed rows are."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from simpleslam_tpu_torch.ops import voxel as tvox
+
+    target, rows, start = two_scan_batch
+    dev = torch.device("cuda")
+    vm = tvox.MergedDenseVoxelMap(target.rows.to(dev), target.scale.to(dev),
+                                  target.corner.to(dev), target.grid.to(dev),
+                                  target.dims, target.slab_pts)
+    rows_d, start_d = rows.to(dev), start.to(dev)
+    eye = torch.eye(4, device=dev)
+    args = (rows_d, vm, start_d, start_d, eye)
+    kw = dict(kind="loam", clamp=True, degen=0.0, jump_cap=10.0)
+    tst._batch_body(*args, **kw)   # builds the kernels
+    lk.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, packed = tst._batch_body(*args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS) == (2, 0)
+    _, ref = tst._batch_body(rows, target, start, start, torch.eye(4), **kw)
+    got = packed.cpu()
+    assert torch.equal(got[:, 16:], ref[:, 16:])
+    assert (got[:, :16] - ref[:, :16]).abs().max() < 1e-3
 
 
 def test_sync_backend_is_deterministic():
