@@ -1,8 +1,8 @@
 """Smoke run of the PyTorch port on one CUDA GPU.
 
-    python3 chip_smoke.py [--scans N] [--kernels-only]
+    python3 chip_smoke.py [--scans N] [--kernels-only] [--only PATHS]
 
-Drives ``simpleslam_tpu_torch`` (never jax) through eight phases and fails
+Drives ``simpleslam_tpu_torch`` (never jax) through twelve phases and fails
 with a nonzero exit on the first problem:
 
 1. environment: card name and power limit (nvidia-smi), torch / CUDA
@@ -42,10 +42,28 @@ with a nonzero exit on the first problem:
    ``torch.cuda.set_sync_debug_mode("error")`` (no host synchronisation
    before the packed read) and print that batch's launches per scan and the
    device's idle share from ``torch.profiler``;
-8. the result: a JSON line of the kernels (with the launches of each path:
+8. streamed lio: the bench's ``lio`` config (wheel+IMU fused by the host
+   EKF replay in 4096-event chunks, ``odom2map`` in the device chain, backend
+   on) on the same 150 scans: the checks of 5-6, at least one EKF chunk, and
+   the ``ekf_replay`` time;
+9. NDT odometry and 10. VGICP odometry: streamed lo with ``pcr: ndt`` /
+   ``pcr: vgicp`` on the first 60 of those scans at full width (the default
+   (192, 192, 32) dense grid) in 16-scan batches, each run twice: finite poses, ATE under the
+   0.3 m of tests/test_ndt_vgicp.py, poses bit-identical across the two
+   runs, one batch body of 8 scans under sync debugging and under the
+   profiler. These registers are plain PyTorch: no kernel of the table is on
+   their path, and their K3 / K1 / K2 counts (0) are printed;
+11. threaded: ``run_threaded`` in bag mode (ingest, LO, map-update and
+   backend threads) with LOAM and the backend on, on those 60 scans: every
+   scan processed, ATE inside the streamed limit, K3 once per registration;
+12. the result: a JSON line of the kernels (with the launches of each path:
    K3's launches, and for K1 and K2 the times their bodies ran as phases of
    K3, from the recorded gathers and iterations), the nvidia-smi line, and
    last a JSON line ``{"ok": true, "device": ...}``.
+
+``--only lio,ndt,vgicp,threaded`` drives just the named paths of 8-11 after
+the build (a quick check while working on one of them) and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -598,15 +616,21 @@ def describe_launches(c: dict) -> str:
 
 
 def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
-               conv_min: float, launches: dict) -> None:
+               conv_min: float, launches: dict, kind: str = "loam") -> None:
     if result.poses.shape != (n_scans, 4, 4) or not np.isfinite(
             result.poses).all():
         fail(f"{name}: trajectory is not finite ({n_scans}, 4, 4)")
     if not ate < ate_max:
         fail(f"{name}: ATE {ate} >= {ate_max} m")
-    if not result.converged_frac > conv_min:
+    if conv_min is not None and not result.converged_frac > conv_min:
         fail(f"{name}: converged fraction {result.converged_frac} <= "
              f"{conv_min}")
+    if kind != "loam":
+        # NDT and VGICP are plain PyTorch: no kernel of the table is on
+        # their path, so 0 launches is the expected reading
+        print(f"{name}: register {kind} launches no hand kernel: "
+              f"{describe_launches(launches)}")
+        return
     # every scan but the one that seeds the map is registered, each by one
     # launch of K3
     if not (launches["k3"] == launches["registrations"] == n_scans - 1):
@@ -619,25 +643,34 @@ def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
 
 
 def report_streamed(name: str, result, n_scans: int, ate: float,
-                    launches: dict, card: str, ate_before: float) -> None:
+                    launches: dict, card: str, ate_before=None) -> None:
     t = result.timers
     stages = ", ".join(
         f"{k} {1e3 * t.mean(k):.2f} ms x{t.count[k]}"
-        for k in ("prep", "upload", "dispatch", "fetch", "bookkeep",
-                  "map_update", "backend", "lc") if t.count[k])
-    n_reg = max(launches["registrations"], 1)
+        for k in ("ekf_replay", "prep", "upload", "dispatch", "fetch",
+                  "bookkeep", "map_update", "backend", "lc") if t.count[k])
+    n_reg = max(n_scans - 1, 1)
+    before = ("" if ate_before is None
+              else f"; {ate_before:.4f} m before K3")
     print(f"{name}: {n_scans} scans in {result.wall_time:.2f} s = "
           f"{n_scans / result.wall_time:.2f} scans/s end to end ({card})")
     print(f"{name}: stage means {stages}; dispatch "
           f"{1e3 * t.total['dispatch'] / n_reg:.3f} ms per scan ({card})")
     print(result.timers.report())
-    print(f"{name}: ATE {ate:.4f} m (unaligned; {ate_before:.4f} m before K3),"
+    print(f"{name}: ATE {ate:.4f} m (unaligned{before}),"
           f" keyframes {result.keyframe_count}, converged "
           f"{result.converged_frac:.3f}, GN iterations/scan "
           f"{result.extras['gn_iters_mean']}, scan capacity "
           f"{result.extras['scan_capacity']}, {describe_launches(launches)}, "
           f"peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+
+
+def sort_grid(system) -> float:
+    """The grid ``run_streamed`` sorts prepped scans at: LOAM's dense-map
+    grid, or the NDT / VGICP voxel resolution."""
+    reg = system.register
+    return float(getattr(reg, "TARGET_GRID", getattr(reg, "RESOLUTION", 0.0)))
 
 
 def prep_scans(system, streams, idx, cap: int):
@@ -648,17 +681,19 @@ def prep_scans(system, streams, idx, cap: int):
 
     return native.voxel_downsample_sort_quant_batch(
         [np.asarray(streams.scans[i], np.float32) for i in idx],
-        float(system.lidar_odometry.grid_size), cap,
-        float(system.register.TARGET_GRID), streamed.UPLOAD_SCALE)
+        float(system.lidar_odometry.grid_size), cap, sort_grid(system),
+        streamed.UPLOAD_SCALE)
 
 
 def batch_probe(name: str, system, streams, result, sync_every: int,
                 card: str) -> None:
     """One batch body on the path's own state (its last target, its last
-    ``sync_every`` scans, the chain at the scans before them): first with
-    sync debugging set to raise, so any host synchronisation before the
-    packed read is an error; then under ``torch.profiler`` for the launches
-    per scan and the device's idle share."""
+    ``sync_every`` scans, the chain at the scans before them; in lio mode
+    those scans' local odometry from the EKF feeder and the ``odom2map``
+    that goes with the chain): first with sync debugging set to raise, so
+    any host synchronisation before the packed read is an error; then under
+    ``torch.profiler`` for the launches per scan and the device's idle
+    share."""
     from torch.profiler import ProfilerActivity, profile
 
     from simpleslam_tpu_torch.ops import loam_kernels as lk
@@ -675,11 +710,22 @@ def batch_probe(name: str, system, streams, result, sync_every: int,
     prev = torch.tensor(result.poses[n - k - 1].astype(np.float32), device=dev)
     prev2 = torch.tensor(result.poses[n - k - 2].astype(np.float32),
                          device=dev)
-    eye = torch.eye(4, device=dev)
-    args = (rows_d, system.map_manager.get_target(), prev, prev2, eye,
-            system.register.KIND,
+    odom2map, local_d = torch.eye(4, device=dev), None
+    if system.mode == "lio":
+        stamps = np.asarray(streams.scan_stamps)
+        local = np.tile(np.eye(4, dtype=np.float32), (n, 1, 1))
+        streamed._LocalOdomFeeder(streams, stamps, local).ensure(n - 1)
+        odom2map = torch.tensor(
+            (result.poses[n - k - 1] @ np.linalg.inv(
+                local[n - k - 1].astype(np.float64))).astype(np.float32),
+            device=dev)
+        local_d = torch.from_numpy(local[n - k:]).to(dev)
+    kind = system.register.KIND
+    n_k3 = k if kind == "loam" else 0
+    args = (rows_d, system.map_manager.get_target(), prev, prev2, odom2map,
+            kind,
             bool(Params.get_instance()["frontend"].get("planar_clamp", True)),
-            float(system.register.degen_per_row))
+            float(system.register.degen_per_row), 0.0, local_d)
     streamed._batch_body(*args)[1].cpu()
     torch.cuda.synchronize()
     before = lk.K3_LAUNCHES
@@ -689,9 +735,9 @@ def batch_probe(name: str, system, streams, result, sync_every: int,
     finally:
         torch.cuda.set_sync_debug_mode("default")
     rows_h = packed.cpu().numpy()
-    if lk.K3_LAUNCHES - before != k or not np.isfinite(rows_h).all():
+    if lk.K3_LAUNCHES - before != n_k3 or not np.isfinite(rows_h).all():
         fail(f"{name}: batch body under sync debugging: K3 launches "
-             f"{lk.K3_LAUNCHES - before} for {k} scans")
+             f"{lk.K3_LAUNCHES - before} for {k} scans of register {kind}")
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -713,10 +759,15 @@ def batch_probe(name: str, system, streams, result, sync_every: int,
           f"with the profiler on) ({card})")
 
 
-def streamed_run(name: str, cfg: dict, streams, card: str, ate_before: float,
-                 prewarm=False):
-    """One bench config through ``run_streamed``; returns the kernel counts
-    of exactly that run, the system and the result."""
+def streamed_run(name: str, cfg: dict, streams, card: str, ate_before=None,
+                 prewarm=False, ate_max=STREAMED_ATE_MAX,
+                 conv_min=STREAMED_CONV_MIN, sync_every=BENCH_SYNC_EVERY,
+                 probe_scans=BENCH_SYNC_EVERY):
+    """One config through ``run_streamed`` in batches of ``sync_every`` scans
+    (the bench's batch size unless given); returns the kernel counts of
+    exactly that run, the system and the result. ``probe_scans`` is the size
+    of the batch body that is run alone afterwards (0: none); ``conv_min``
+    None sets no bound on the converged share."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
     from simpleslam_tpu_torch.pipeline import app
     from simpleslam_tpu_torch.pipeline import simulate as sim
@@ -732,15 +783,16 @@ def streamed_run(name: str, cfg: dict, streams, card: str, ate_before: float,
     torch.cuda.reset_peak_memory_stats()
     lk.reset_counts()
     with GnRecorder() as rec:
-        result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY)
+        result = run_streamed(system, streams, sync_every=sync_every)
         torch.cuda.synchronize()
     launches = launch_counts(rec)
     n = len(streams.scan_stamps)
     ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
     report_streamed(name, result, n, ate, launches, card, ate_before)
-    check_path(name, result, n, ate, STREAMED_ATE_MAX, STREAMED_CONV_MIN,
-               launches)
-    batch_probe(name, system, streams, result, BENCH_SYNC_EVERY, card)
+    check_path(name, result, n, ate, ate_max, conv_min, launches,
+               system.register.KIND)
+    if probe_scans:
+        batch_probe(name, system, streams, result, probe_scans, card)
     return launches, system, result
 
 
@@ -944,6 +996,124 @@ def loop_closure_run(card: str):
     return runs[0][1]
 
 
+# the bench's lio config (bench.py:398-401)
+BENCH_LIO = {"mode": "lio", "backend": {"enable": True, "lc": {"enable": False}},
+             "frontend": {"pcr": "loam"}}
+REGISTER_SCANS = 60       # scans of the NDT, VGICP and threaded paths
+REGISTER_ATE_MAX = 0.3    # the bound of tests/test_ndt_vgicp.py
+# 16-scan batches for NDT and VGICP: four batches in 60 scans, so submap
+# rebuilds (a Gaussian target, its precisions) fall inside the run
+REGISTER_SYNC_EVERY = 16
+REGISTER_PROBE_SCANS = 8  # their lone batch body (thousands of launches a scan)
+
+
+def head_of(sim, streams, n: int):
+    """The first ``n`` scans of ``streams`` (the wheel and IMU streams stay
+    whole)."""
+    return sim.SensorStreams(
+        scan_stamps=streams.scan_stamps[:n], scans=streams.scans[:n],
+        gt_poses=streams.gt_poses[:n], wheel_stamps=streams.wheel_stamps,
+        wheel_poses=streams.wheel_poses, imu_stamps=streams.imu_stamps,
+        imu_quats=streams.imu_quats)
+
+
+def lio_run(streams, card: str) -> dict:
+    """The bench's lio config through ``run_streamed``: K3 once per
+    registration, the EKF replay on the host in chunks."""
+    launches, _, result = streamed_run(
+        "streamed lio (bench lio config)", BENCH_LIO, streams, card,
+        prewarm=True)
+    t = result.timers
+    print(f"streamed lio: ekf_chunks {result.extras['ekf_chunks']}, "
+          f"ekf_replay {1e3 * t.total['ekf_replay']:.3f} ms in "
+          f"{t.count['ekf_replay']} calls (host, the tape built and fused "
+          f"just ahead of each batch) ({card})")
+    if result.extras["ekf_chunks"] < 1:
+        fail("streamed lio: no EKF chunk was fused")
+    return launches
+
+
+def register_runs(kind: str, streams, card: str) -> dict:
+    """NDT or VGICP as the odometry register, streamed lo with the backend
+    off, twice: accuracy, the lone batch body once, bit-identical poses."""
+    cfg = {"mode": "lo", "backend": {"enable": False},
+           "frontend": {"pcr": kind}}
+    runs = []
+    for rep in range(2):
+        launches, _, result = streamed_run(
+            f"{kind} odometry, run {rep + 1} (streamed lo, pcr {kind})", cfg,
+            streams, card, ate_max=REGISTER_ATE_MAX, conv_min=None,
+            sync_every=REGISTER_SYNC_EVERY,
+            probe_scans=0 if rep else REGISTER_PROBE_SCANS)
+        runs.append((result.poses, launches))
+        torch.cuda.empty_cache()
+    same = np.array_equal(runs[0][0], runs[1][0])
+    print(f"{kind} odometry: two runs bit-identical: {same}")
+    if not same:
+        fail(f"the two {kind} runs differ")
+    return runs[0][1]
+
+
+def threaded_run(streams, card: str) -> dict:
+    """``run_threaded`` in bag mode: LOAM odometry on the LO thread, map
+    updates and backend turns on theirs, all on the one CUDA stream."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.threaded import run_threaded
+
+    name = "threaded"
+    phase("threaded (bag mode, lo + LOAM + backend)")
+    system = app.SlamSystem({"mode": "lo", "backend": {"enable": True},
+                             "frontend": {"pcr": "loam"},
+                             "torch": {"device": "cuda"}})
+    system.prewarm()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_counts()
+    with GnRecorder() as rec:
+        result = run_threaded(system, streams)
+        torch.cuda.synchronize()
+    launches = launch_counts(rec)
+    n = len(streams.scan_stamps)
+    ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
+    print(f"{name}: {result.extras['n_processed']} of {n} scans processed in "
+          f"{result.wall_time:.2f} s = {n / result.wall_time:.2f} scans/s end "
+          f"to end ({card})")
+    print(result.timers.report())
+    print(f"{name}: ATE {ate:.4f} m (unaligned), keyframes "
+          f"{result.keyframe_count}, backend edges "
+          f"{len(system.backend.edge_i)}, {describe_launches(launches)}, peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB "
+          f"({card})")
+    if result.extras["n_processed"] != n:
+        fail(f"{name}: {result.extras['n_processed']} of {n} scans processed "
+             "in bag mode")
+    if len(system.backend.edge_i) < result.keyframe_count - 1:
+        fail(f"{name}: the backend thread did not consume the keyframe events")
+    check_path(name, result, n, ate, STREAMED_ATE_MAX, None, launches)
+    return launches
+
+
+NEW_PATHS = ("lio", "ndt", "vgicp", "threaded")
+
+
+def new_paths(which, streams, card: str) -> dict:
+    """Phases 8-11, those named in ``which``: {path name: launch counts}."""
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+
+    head = head_of(sim, streams, REGISTER_SCANS)
+    out = {}
+    if "lio" in which:
+        out["streamed_lio"] = lio_run(streams, card)
+    for kind in ("ndt", "vgicp"):
+        if kind in which:
+            out[f"streamed_{kind}"] = register_runs(kind, head, card)
+    if "threaded" in which:
+        out["threaded"] = threaded_run(head, card)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scans", type=int, default=100)
@@ -951,9 +1121,25 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after phase 3 (build, kernels against their "
                          "plain versions); prints no result line")
+    ap.add_argument("--only", default="", metavar="PATHS",
+                    help="comma-separated subset of " + ",".join(NEW_PATHS)
+                    + ": drive just those paths after the build; prints no "
+                    "result line")
     args = ap.parse_args()
     card = environment()
     build()
+    if args.only:
+        from simpleslam_tpu_torch.pipeline import simulate as sim
+
+        which = args.only.split(",")
+        if set(which) - set(NEW_PATHS):
+            fail(f"--only takes {NEW_PATHS}, got {which}")
+        streams = sim.simulate_sequence(sim.make_world(seed=0),
+                                        n_scans=args.stream_scans, seed=0,
+                                        n_az=1800, n_el=16)
+        new_paths(which, streams, card)
+        print(f"--only {args.only}: passed, no result line")
+        return 0
     kern, tally = kernels(card)
     if args.kernels_only:
         tally.check()
@@ -984,6 +1170,7 @@ def main() -> int:
     del full_sys, be, full_res
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
+    by_path.update(new_paths(NEW_PATHS, streams, card))
 
     # launches, errors, times and bounds of the main path (streamed full);
     # the offline inputs' errors count as well. K3 is the kernel the paths

@@ -1,13 +1,15 @@
 """ctypes loader for the C++ host helpers, with a reported numpy fallback.
 
 The host helpers (NaN-strip + padding, first-point voxel downsample of
-keyframe clouds, submap transform + concat, and the streamed executor's
-downsample + spatial sort + int16 quantization of scan batches) share one
-C++ source with the reference package, ``simpleslam_tpu/native/hostops.cpp``. It is read as a
-file and compiled with g++ at first use into ``simpleslam_tpu_torch/build/``,
-under a name keyed by the source's hash, so both packages run the same host
-code. These are host-only helpers, not device kernels: where no compiler is
-present each entry point falls back to numpy with the same semantics.
+keyframe clouds, submap transform + concat, the streamed executor's
+downsample + spatial sort + int16 quantization of scan batches, and the lio
+mode's EKF replay over a chunk of the wheel+IMU tape) live in the package's
+own C++ source, ``csrc/hostops.cpp``: a copy of the reference package's host
+runtime plus the EKF step, so the port builds with no other package beside
+it. It is compiled with g++ at first use into ``simpleslam_tpu_torch/build/``,
+under a name keyed by the source's hash. These are host-only helpers, not
+device kernels: where no compiler is present each entry point falls back to
+numpy with the same semantics.
 
 Unlike the reference loader, the fallback is never silent: ``backend()``
 says which path runs ("cpp" or "numpy"), and the first fallback logs a
@@ -26,8 +28,7 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "simpleslam_tpu", "native",
-                   "hostops.cpp")
+SRC = os.path.join(_PKG, "csrc", "hostops.cpp")
 BUILD_DIR = os.path.join(_PKG, "build")
 
 _lock = threading.Lock()
@@ -67,6 +68,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.voxel_downsample_sort_quant_batch.argtypes = [
         f32p, i64p, i64, ctypes.c_float, i64, i64, ctypes.c_float,
         ctypes.c_float, ctypes.POINTER(ctypes.c_int16), i64p, i64]
+    lib.ekf_replay_chunk.restype = None
+    lib.ekf_replay_chunk.argtypes = [
+        f32p, f32p, ctypes.POINTER(ctypes.c_int32), f32p, f32p, f32p, u8p,
+        f32p, f32p, f32p, i64, f32p, u8p]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -237,6 +242,33 @@ def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
         counts_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), threads)
     return out, counts_out
+
+
+def ekf_replay_chunk(x: np.ndarray, P: np.ndarray, flags: np.ndarray,
+                     scal: np.ndarray, var: np.ndarray, stamps: np.ndarray,
+                     is_wheel: np.ndarray, xy: np.ndarray, wyaw: np.ndarray,
+                     iyaw: np.ndarray):
+    """The planar EKF over one chunk of the event tape, in f32 (see
+    ``csrc/hostops.cpp``). The carry arrays ``x`` (3,), ``P`` (3, 3) f32,
+    ``flags`` (3,) int32 and ``scal`` (6,) f32 are updated in place. Returns
+    (states (n, 3) f32, emitted (n,) bool), or None where the C++ helpers are
+    not built: the caller then runs its numpy step."""
+    lib = _load()
+    if lib is None:
+        return None
+    n = len(stamps)
+    stamps, xy = _f32c(stamps), _f32c(xy)
+    wyaw, iyaw = _f32c(wyaw), _f32c(iyaw)
+    isw = np.ascontiguousarray(is_wheel, dtype=np.uint8)
+    states = np.empty((n, 3), np.float32)
+    emitted = np.empty(n, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.ekf_replay_chunk(
+        _fp(x), _fp(P), flags.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        _fp(scal), _fp(_f32c(var)), _fp(stamps), isw.ctypes.data_as(u8p),
+        _fp(xy), _fp(wyaw), _fp(iyaw), n, _fp(states),
+        emitted.ctypes.data_as(u8p))
+    return states, emitted.astype(bool)
 
 
 # ---------------------------------------------------------------------------

@@ -257,3 +257,42 @@ def six_dof_to_mobile(T: torch.Tensor) -> torch.Tensor:
     t = T[..., :3, 3]
     t = torch.stack([t[..., 0], t[..., 1], torch.zeros_like(t[..., 2])], dim=-1)
     return make_pose(Rz, t)
+
+
+def rot_to_ypr(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (yaw, pitch, roll), static-axis ZYX, with the singular
+    branch of ``trans::q2ypr`` (trans.hpp:24-43)."""
+    r20 = R[..., 2, 0]
+    singular = torch.abs(r20) >= 1.0
+    zero = torch.zeros_like(r20)
+    yaw = torch.where(singular, zero, torch.atan2(R[..., 1, 0], R[..., 0, 0]))
+    pitch = torch.where(singular, torch.sign(-r20) * (math.pi / 2),
+                        -torch.arcsin(torch.clamp(r20, -1.0, 1.0)))
+    roll = torch.where(singular, torch.atan2(R[..., 0, 1], R[..., 0, 2]),
+                       torch.atan2(R[..., 2, 1], R[..., 2, 2]))
+    return torch.stack([yaw, pitch, roll], dim=-1)
+
+
+def ypr_to_rot(ypr: torch.Tensor) -> torch.Tensor:
+    """(yaw, pitch, roll) -> R = Rz(yaw) Ry(pitch) Rx(roll)
+    (trans.hpp:45-50)."""
+    y, p, r = ypr[..., 0], ypr[..., 1], ypr[..., 2]
+    cy, sy = torch.cos(y), torch.sin(y)
+    cp, sp = torch.cos(p), torch.sin(p)
+    cr, sr = torch.cos(r), torch.sin(r)
+    return torch.stack(
+        [
+            torch.stack([cy * cp, cy * sp * sr - sy * cr,
+                         cy * sp * cr + sy * sr], dim=-1),
+            torch.stack([sy * cp, sy * sp * sr + cy * cr,
+                         sy * sp * cr - cy * sr], dim=-1),
+            torch.stack([-sp, cp * sr, cp * cr], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def correct_angles(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Wrap ``a`` into (ref - pi, ref + pi] (Math.hpp:24-29), branch-free;
+    ``torch.round`` rounds half to even, as the reference's does."""
+    return a - 2.0 * math.pi * torch.round((a - ref) / (2.0 * math.pi))

@@ -123,10 +123,9 @@ def symeig3x3(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     v2 = _eigvec_for(M, lam[..., 0], lam[..., 1])
     v2 = v2 - torch.sum(v2 * v0, dim=-1, keepdim=True) * v0
     n2 = torch.linalg.norm(v2, dim=-1, keepdim=True)
-    ex = torch.tensor([1.0, 0.0, 0.0], dtype=M.dtype,
-                      device=M.device).expand_as(v0)
-    ey = torch.tensor([0.0, 1.0, 0.0], dtype=M.dtype,
-                      device=M.device).expand_as(v0)
+    # unit vectors made on the device (a host list would be a blocking copy)
+    eye = torch.eye(3, dtype=M.dtype, device=M.device)
+    ex, ey = eye[0].expand_as(v0), eye[1].expand_as(v0)
     alt = torch.linalg.cross(v0, ex)
     alt = torch.where(torch.linalg.norm(alt, dim=-1, keepdim=True) > 0.1, alt,
                       torch.linalg.cross(v0, ey))

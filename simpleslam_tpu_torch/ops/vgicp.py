@@ -5,10 +5,16 @@ Port of ``simpleslam_tpu/ops/vgicp.py`` (single device): per-source-point
 plane-regularized covariances from a dense-grid neighbourhood, the target
 accumulated into Gaussian voxels, and the distribution-to-distribution
 Mahalanobis cost minimized by damped GN over SE(3) with center-voxel
-correspondences (DIRECT1). The reference's ``lax.while_loop`` is a Python
-loop here with one host read per iteration (the exit test). The loop
-closure manager verifies candidates with it (``lc_mode``); VGICP as the
-odometry register is ROADMAP item 10.
+correspondences (DIRECT1). It is the VGICP odometry register and, in
+``lc_mode``, the loop closure manager's verifier.
+
+The reference's ``lax.while_loop`` is one pure step on tensors here,
+``state -> state``, whose state carries its own stop test: a state that is
+done (converged, starved, or out of iterations) passes through the step
+untouched. The streamed batch runs the step ``max_iters`` times with no host
+read; the per-scan paths and the loop-closure verifier run it until done,
+reading the stop test once per iteration. Both give the same result bit for
+bit, with the iterates of the reference's loop.
 """
 
 from __future__ import annotations
@@ -56,9 +62,9 @@ class VgicpTarget(NamedTuple):
 
 class VgicpResult(NamedTuple):
     pose: torch.Tensor       # (4, 4) refined pose, on the device
-    converged: bool
-    iters: int
-    fitness: torch.Tensor    # () mean squared NN distance, on the device
+    converged: torch.Tensor  # () bool
+    iters: torch.Tensor      # () int32, iterations that ran
+    fitness: torch.Tensor    # () mean squared NN distance
 
 
 def build_target(submap: PointCloud, resolution, center: torch.Tensor,
@@ -75,8 +81,10 @@ def build_target(submap: PointCloud, resolution, center: torch.Tensor,
 def _plane_regularize(covs: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """fast_gicp RegularizationMethod::PLANE: eigenvalues -> (1e-3, 1, 1)."""
     _, V = symeig3x3(covs)
-    lam_reg = torch.tensor([1e-3, 1.0, 1.0], dtype=covs.dtype,
-                           device=covs.device)
+    # made on the device by fills (a host list, or a scalar assigned to one
+    # element, would be a blocking copy)
+    lam_reg = torch.ones(3, dtype=covs.dtype, device=covs.device)
+    lam_reg.narrow(0, 0, 1).fill_(1e-3)
     reg = torch.einsum("...ik,k,...jk->...ij", V, lam_reg, V)
     eye = torch.eye(3, dtype=covs.dtype, device=covs.device).expand_as(reg)
     return torch.where(valid[:, None, None], reg, eye)
@@ -135,56 +143,93 @@ def _linearize(src: PointCloud, src_covs: torch.Tensor,
     return H, g, cost, n_valid
 
 
+class _State(NamedTuple):
+    """The damped GN loop's carry, with the carried linearization; ``conv``
+    also holds "starved"."""
+
+    pose: torch.Tensor   # (4, 4)
+    iters: torch.Tensor  # () int32
+    conv: torch.Tensor   # () bool
+    lam: torch.Tensor    # () f32 damping
+    H: torch.Tensor      # (6, 6)
+    g: torch.Tensor      # (6,)
+    cost: torch.Tensor   # ()
+    n: torch.Tensor      # () int32 rows of the linearization
+
+
+def _done(state: _State, max_iters: int) -> torch.Tensor:
+    return state.conv | (state.iters >= max_iters)
+
+
+def _step(lin, max_iters: int, eps: float, state: _State) -> _State:
+    """One damped GN iteration with a carried linearization: the trial
+    evaluation is the next iteration's linearization when accepted (chi2
+    drops), else the carried one stays; lambda halves on accept and grows 8x
+    on reject. Converged on a small step or a < 1e-4 relative chi2 gain; a
+    starved linearization (< 6 rows) stops the loop. A done state comes back
+    untouched."""
+    pose, it, conv, lam, H, g, cost, n = state
+    done = _done(state, max_iters)
+    diag = torch.clamp(torch.diagonal(H), min=1e-6)
+    # solve_ex: no error check on the host, so no synchronisation
+    dx = torch.linalg.solve_ex(H + lam * torch.diag(diag), -g).result
+    new_pose = geo.pose_compose(geo.se3_exp(dx), pose)
+    H2, g2, cost2, n2 = lin(new_pose)
+    improved = cost2 < cost
+    gain = cost - cost2
+    keep = done | ~improved              # the carried linearization stays
+    n_next = torch.where(keep, n, n2)
+    # step-norm epsilon OR a chi2 plateau (in f32 the step norm floors
+    # near 1e-4, so the LC epsilon alone would always run 100 steps)
+    plateau = improved & (gain < 1e-4 * cost2)
+    conv_next = ((improved & (torch.linalg.norm(dx) < eps)) | plateau
+                 | (n_next < 6))
+    lam_next = torch.where(improved, torch.clamp(lam * 0.5, min=1e-8),
+                           torch.clamp(lam * 8.0, max=1e6))
+    return _State(torch.where(keep, pose, new_pose),
+                  torch.where(done, it, it + 1),
+                  torch.where(done, conv, conv_next),
+                  torch.where(done, lam, lam_next),
+                  torch.where(keep, H, H2), torch.where(keep, g, g2),
+                  torch.where(keep, cost, cost2), n_next)
+
+
 def _align_impl(src: PointCloud, src_covs, src_valid, target: VgicpTarget,
-                init_pose: torch.Tensor, max_iters: int,
-                eps: float) -> VgicpResult:
-    """Damped GN with a carried linearization: the trial evaluation is the
-    next iteration's linearization when accepted (chi2 drops), else the
-    carried one stays; lambda halves on accept and grows 8x on reject.
-    Converged on a small step or a < 1e-4 relative chi2 gain; a starved
-    linearization (< 6 rows) stops the loop."""
-    def _lin(p):
+                init_pose: torch.Tensor, max_iters: int, eps: float,
+                early_exit: bool) -> VgicpResult:
+    def lin(p):
         return _linearize(src, src_covs, src_valid, target, p)
 
-    pose = init_pose.to(torch.float32)
-    H, g, cost, n = _lin(pose)
-    lam = torch.tensor(1e-6, dtype=torch.float32, device=pose.device)
-    it, conv = 0, False
-    while it < max_iters and not conv:
-        diag = torch.clamp(torch.diagonal(H), min=1e-6)
-        dx = torch.linalg.solve(H + lam * torch.diag(diag), -g)
-        new_pose = geo.pose_compose(geo.se3_exp(dx), pose)
-        H2, g2, cost2, n2 = _lin(new_pose)
-        improved = cost2 < cost
-        gain = cost - cost2
-        pose = torch.where(improved, new_pose, pose)
-        H = torch.where(improved, H2, H)
-        g = torch.where(improved, g2, g)
-        cost = torch.where(improved, cost2, cost)
-        n = torch.where(improved, n2, n)
-        lam = torch.where(improved, torch.clamp(lam * 0.5, min=1e-8),
-                          torch.clamp(lam * 8.0, max=1e6))
-        # step-norm epsilon OR a chi2 plateau (in f32 the step norm floors
-        # near 1e-4, so the LC epsilon alone would always run 100 steps)
-        plateau = improved & (gain < 1e-4 * cost2)
-        conv_next = (improved & (torch.linalg.norm(dx) < eps)) | plateau
-        it += 1
-        conv = bool(conv_next | (n < 6))
-    pose = geo.reorthonormalize(pose)
+    pose0 = init_pose.to(torch.float32)
+    dev = pose0.device
+    state = _State(pose0, torch.zeros((), dtype=torch.int32, device=dev),
+                   torch.zeros((), dtype=torch.bool, device=dev),
+                   torch.full((), 1e-6, dtype=torch.float32, device=dev),
+                   *lin(pose0))
+    for _ in range(max_iters):
+        if early_exit and bool(_done(state, max_iters)):
+            break
+        state = _step(lin, max_iters, eps, state)
+    pose = geo.reorthonormalize(state.pose)
     fit = fitness_score(src, target.pts, pose)
-    return VgicpResult(pose, conv and int(n) >= 6, it, fit)
+    return VgicpResult(pose, state.conv & (state.n >= 6), state.iters, fit)
 
 
 def align(src: PointCloud, target: VgicpTarget, init_pose: torch.Tensor,
-          lc_mode: bool = False) -> VgicpResult:
+          lc_mode: bool = False, early_exit: bool = False) -> VgicpResult:
     """Register ``src`` to ``target`` from ``init_pose``; ``lc_mode`` takes
-    the loosened loop-closure budget (100 iterations, epsilon 1e-6)."""
+    the loosened loop-closure budget (100 iterations, epsilon 1e-6).
+
+    The step runs its full count with nothing read from the device (what
+    the streamed batch needs); with ``early_exit`` the loop reads the
+    state's stop test after each step and leaves the loop once it holds.
+    Both give the same result, fields as 0-dim tensors."""
     src_covs, src_valid = source_covariances(src)
     if lc_mode:
         return _align_impl(src, src_covs, src_valid, target, init_pose,
-                           max_iters=LC_MAX_ITERS, eps=LC_CONVERGE_EPS)
+                           LC_MAX_ITERS, LC_CONVERGE_EPS, early_exit)
     return _align_impl(src, src_covs, src_valid, target, init_pose,
-                       max_iters=MAX_ITERS, eps=CONVERGE_EPS)
+                       MAX_ITERS, CONVERGE_EPS, early_exit)
 
 
 def fitness_score(src: PointCloud, target_pts: DenseVoxelMap,

@@ -13,6 +13,7 @@ results repeat bit for bit run to run on the GPU).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -41,9 +42,19 @@ def pack_coords(c: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
                        torch.full_like(key, INVALID_KEY))
 
 
+def _scalar_tensor(v, dtype, device) -> torch.Tensor:
+    """``v`` (a number or a tensor) as a 0-dim tensor on ``device``. A number
+    is written by a fill on the device: ``torch.as_tensor`` would copy it
+    from host memory, which synchronises (the VGICP register builds a voxel
+    map of the source inside the streamed batch)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=dtype, device=device)
+    return torch.full((), float(v), dtype=dtype, device=device)
+
+
 def voxel_keys(xyz: torch.Tensor, mask: torch.Tensor, origin: torch.Tensor,
                grid) -> torch.Tensor:
-    grid = torch.as_tensor(grid, dtype=xyz.dtype, device=xyz.device)
+    grid = _scalar_tensor(grid, xyz.dtype, xyz.device)
     return pack_coords(voxel_coords(xyz, origin, grid), mask)
 
 
@@ -131,6 +142,12 @@ class DenseVoxelMap(NamedTuple):
     slab_pts: int
 
 
+@functools.lru_cache(maxsize=None)
+def _dims_tensor(dims: Tuple[int, int, int], dtype, device) -> torch.Tensor:
+    """``dims`` as a (3,) tensor on ``device``, uploaded once and shared."""
+    return torch.tensor(dims, dtype=dtype, device=device)
+
+
 def _dense_flat(c: torch.Tensor, dims: Tuple[int, int, int],
                 valid: torch.Tensor) -> torch.Tensor:
     """(..., 3) int voxel coords -> flat index, sentinel G for invalid."""
@@ -155,10 +172,10 @@ def build_dense_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
     from ``searchsorted`` on the sorted voxel ids.
     """
     dev = pc.xyz.device
-    grid = torch.as_tensor(grid, dtype=pc.xyz.dtype, device=dev)
+    grid = _scalar_tensor(grid, pc.xyz.dtype, dev)
     gx, gy, gz = dims
     g_total = gx * gy * gz
-    dims_t = torch.tensor([gx, gy, gz], dtype=pc.xyz.dtype, device=dev)
+    dims_t = _dims_tensor(tuple(dims), pc.xyz.dtype, dev)
     corner = center - dims_t * grid / 2.0
     c = torch.floor((pc.xyz - corner) / grid).to(torch.int32)
     flat = _dense_flat(c, dims, pc.mask)
@@ -175,14 +192,21 @@ def build_dense_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
     valid = lanes[None, :] < torch.clamp(counts, max=m)[:, None]
     pts = xyz_s[src]                                          # (G+1, M, 3)
     pts = torch.where(valid[..., None], pts, torch.full_like(pts, PAD_COORD))
-    pts[g_total] = PAD_COORD                    # sentinel row: pure padding
+    # sentinel row: pure padding. Written as fills of one-row views: a
+    # scalar assigned to a 0-dim element goes through a host copy, which
+    # synchronises
+    pts.narrow(0, g_total, 1).fill_(PAD_COORD)
     counts = torch.clamp(counts, max=m).to(torch.int32)
-    counts[g_total] = 0
+    counts.narrow(0, g_total, 1).zero_()
     return DenseVoxelMap(pts.reshape(g_total + 1, m * 3), counts, corner,
                          grid, dims, slab_size)
 
 
+@functools.lru_cache(maxsize=None)
 def _neighbor_offsets(radius: int, device) -> torch.Tensor:
+    """The (2r+1)^3 voxel offsets, (K, 3) int32 on ``device``. Uploaded once
+    per (radius, device) and shared, never written: a host-to-device copy at
+    every lookup would synchronise the streamed batch."""
     r = range(-radius, radius + 1)
     return torch.tensor([(x, y, z) for x in r for y in r for z in r],
                         dtype=torch.int32, device=device)
@@ -338,6 +362,18 @@ class DenseGaussianVoxelMap(NamedTuple):
     grid: torch.Tensor    # ()
     dims: Tuple[int, int, int]
 
+    @classmethod
+    def from_numpy(cls, means, covs, counts, corner, grid,
+                   dims: Tuple[int, int, int],
+                   device) -> "DenseGaussianVoxelMap":
+        """A map from host arrays (e.g. one the reference package built)."""
+        def f32(a):
+            return torch.tensor(np.asarray(a, np.float32), device=device)
+
+        return cls(f32(means), f32(covs),
+                   torch.tensor(np.asarray(counts, np.int32), device=device),
+                   f32(corner), f32(grid), tuple(int(d) for d in dims))
+
 
 def build_dense_gaussian_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
                                    dims: Tuple[int, int, int]
@@ -353,10 +389,10 @@ def build_dense_gaussian_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
     share the sentinel row, whose moments are zeroed.
     """
     dev = pc.xyz.device
-    grid = torch.as_tensor(grid, dtype=pc.xyz.dtype, device=dev)
+    grid = _scalar_tensor(grid, pc.xyz.dtype, dev)
     gx, gy, gz = dims
     g_total = gx * gy * gz
-    dims_t = torch.tensor([gx, gy, gz], dtype=pc.xyz.dtype, device=dev)
+    dims_t = _dims_tensor(tuple(dims), pc.xyz.dtype, dev)
     corner = center - dims_t * grid / 2.0
     c = torch.floor((pc.xyz - corner) / grid).to(torch.int32)
     flat = _dense_flat(c, dims, pc.mask)
@@ -400,13 +436,23 @@ def build_dense_gaussian_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
     return DenseGaussianVoxelMap(means, covs, counts, corner, grid, dims)
 
 
+def lookup_gaussians_dense(dgm: DenseGaussianVoxelMap, queries: torch.Tensor,
+                           q_mask: torch.Tensor, offsets: torch.Tensor,
+                           min_points: int = 6):
+    """Dense indices of the voxels at ``queries`` + ``offsets`` (K, 3):
+    -> (valid (Q, K), flat_idx (Q, K)). ``flat_idx`` gathers any table laid
+    out like the map's (means, covariances, precomputed precisions)."""
+    c = torch.floor((queries - dgm.corner) / dgm.grid).to(torch.int32)
+    nc = c[:, None, :] + offsets[None, :, :]
+    flat = _dense_flat(nc, dgm.dims, q_mask[:, None])
+    return dgm.counts[flat] >= min_points, flat
+
+
 def gather_gaussians_dense(dgm: DenseGaussianVoxelMap, queries: torch.Tensor,
                            q_mask: torch.Tensor, offsets: torch.Tensor,
                            min_points: int = 6):
     """Dense-index Gaussian lookup at ``queries`` + ``offsets`` (K, 3):
     -> (means (Q, K, 3), covs (Q, K, 3, 3), valid (Q, K), flat_idx (Q, K))."""
-    c = torch.floor((queries - dgm.corner) / dgm.grid).to(torch.int32)
-    nc = c[:, None, :] + offsets[None, :, :]
-    flat = _dense_flat(nc, dgm.dims, q_mask[:, None])
-    valid = dgm.counts[flat] >= min_points
+    valid, flat = lookup_gaussians_dense(dgm, queries, q_mask, offsets,
+                                         min_points)
     return dgm.means[flat], dgm.covs[flat], valid, flat

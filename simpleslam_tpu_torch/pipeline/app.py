@@ -1,13 +1,15 @@
 """Offline replay harness — the framework's ``app/main.cpp``, in PyTorch.
 
-Port of ``simpleslam_tpu/pipeline/app.py`` for lo mode: the object graph
-(frontend, map manager, lidar odometry, LOAM register, pose-graph backend,
-loop closure) and the deterministic scan-by-scan replay of a
-``SensorStreams`` bundle, with map updates and backend passes run inline at
-their event points; ``main --streamed`` drives ``pipeline/streamed.py``
-instead. lio mode, NDT/VGICP odometry, the visualizer and multi-device runs
-are not ported yet: a config that asks for them is refused, never run as a
-reduced pipeline.
+Port of ``simpleslam_tpu/pipeline/app.py``: the object graph (frontend, map
+manager, lidar odometry, the LOAM / NDT / VGICP register, the EKF proxy of
+lio mode, pose-graph backend, loop closure) and the deterministic
+scan-by-scan replay of a ``SensorStreams`` bundle, with wheel/IMU messages
+fed to the EKF proxy in stamp order and map updates and backend passes run
+inline at their event points; ``main --streamed`` drives
+``pipeline/streamed.py`` instead, and ``pipeline/threaded.py`` holds the
+resident-thread form. The visualizer and multi-device runs are not ported
+yet: a config that asks for them is refused, never run as a reduced
+pipeline.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ..models.mapmanager import MapManager
 from ..models.registration import make_register
 from ..utils.config import Params
 from ..utils.logging import Logger
+from ..utils.profiling import annotate, trace
 from ..utils.tictoc import StageTimers, TicToc
 from . import simulate as sim
 
@@ -39,10 +42,6 @@ class SlamResult:
 
 
 def _check_ported(cfg: dict) -> None:
-    if cfg["mode"] == "lio":
-        raise NotImplementedError(
-            "mode 'lio' is not ported to simpleslam_tpu_torch yet "
-            "(ROADMAP item 9); use mode 'lo'")
     if int(cfg["tpu"].get("mesh_devices", 0)):
         raise NotImplementedError(
             "multi-device execution (tpu.mesh_devices > 0) is not ported to "
@@ -66,7 +65,14 @@ class SlamSystem:
         self.mode = cfg["mode"]
         self.register = make_register()
         self.map_manager = MapManager(self.register, pcd_file=pcd_file)
-        self.frontend = Frontend()
+        self.ekf_proxy = None
+        local_deque = None
+        if self.mode == "lio":
+            from ..models.filter import EkfOdomProxy
+
+            self.ekf_proxy = EkfOdomProxy()
+            local_deque = self.ekf_proxy.local_odom
+        self.frontend = Frontend(local_deque)
         self.lidar_odometry = LidarOdometry(self.frontend, self.map_manager,
                                             self.register)
 
@@ -103,27 +109,58 @@ class SlamSystem:
 
 def run_offline(system: SlamSystem, streams: sim.SensorStreams,
                 progress: bool = False) -> SlamResult:
-    """Deterministic replay of one sequence (bag-mode semantics): each scan
-    runs the full odometry step; a pending map update, then a pending
-    backend pass and the loop-closure turn, run right after it, as the
-    reference's map and backend threads would."""
+    """Deterministic replay of one sequence (bag-mode semantics): sensor
+    messages are dispatched in stamp order (wheel/IMU feed the EKF proxy in
+    lio mode); each scan runs the full odometry step; a pending map update,
+    then a pending backend pass and the loop-closure turn, run right after
+    it, as the reference's map and backend threads would."""
     lg = Logger.get_instance()
     timers = StageTimers()
     tt_all = TicToc()
+    wheel_i = 0
+    imu_i = 0
     est_poses: List[np.ndarray] = []
     n_conv = 0
     scan_stamps = np.asarray(streams.scan_stamps)
     for si, stamp in enumerate(scan_stamps):
+        # Feed the lower-rate streams up to the NEXT scan stamp: in the
+        # reference the bag loop keeps dispatching while the LO thread works,
+        # so the EKF deque always holds entries bracketing the scan being
+        # matched (getClosestLocalOdom's lower_bound + retry,
+        # Frontend.cpp:25-52). The synchronous analogue is a one-scan ingest
+        # lookahead.
+        feed_until = (
+            scan_stamps[si + 1] if si + 1 < len(scan_stamps)
+            else stamp + (scan_stamps[-1] - scan_stamps[0])
+            / max(len(scan_stamps) - 1, 1))
+        if system.ekf_proxy is not None:
+            n_imu, n_wheel = len(streams.imu_stamps), len(streams.wheel_stamps)
+            while imu_i < n_imu or wheel_i < n_wheel:
+                ti = streams.imu_stamps[imu_i] if imu_i < n_imu else np.inf
+                tw = (streams.wheel_stamps[wheel_i] if wheel_i < n_wheel
+                      else np.inf)
+                if min(ti, tw) > feed_until:
+                    break
+                if ti <= tw:
+                    system.ekf_proxy.imu_handler(ti, streams.imu_quats[imu_i])
+                    imu_i += 1
+                else:
+                    system.ekf_proxy.wheel_handler(
+                        tw, streams.wheel_poses[wheel_i])
+                    wheel_i += 1
+
         tt = TicToc()
-        pose = system.lidar_odometry.generate_odom(float(stamp),
-                                                   streams.scans[si])
+        with annotate("odometry"):
+            pose = system.lidar_odometry.generate_odom(float(stamp),
+                                                       streams.scans[si])
         timers.add("odometry", tt.toc())
         est_poses.append(pose)
         if system.register.is_converge or system.map_manager.is_submap_empty():
             n_conv += 1
         if system.map_manager.update_pending():
             tt.tic()
-            system.map_manager.update_map()
+            with annotate("map_update"):
+                system.map_manager.update_map()
             timers.add("map_update", tt.toc())
         if (system.backend is not None
                 and system.map_manager.kf_obj.is_event_coming()):
@@ -174,6 +211,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "chain, K-scan batches)")
     ap.add_argument("--out", default=None, help="map save dir")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace into DIR/trace.json")
     args = ap.parse_args(argv)
 
     cfg = Params.load(args.config) if args.config else Params.load()
@@ -191,12 +230,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     streams = sim.simulate_sequence(world, n_scans=args.scans, seed=args.seed)
     system = SlamSystem()
     system.prewarm()
-    if args.streamed:
-        from .streamed import run_streamed
+    with trace(args.trace):
+        if args.streamed:
+            from .streamed import run_streamed
 
-        result = run_streamed(system, streams, progress=True)
-    else:
-        result = run_offline(system, streams, progress=True)
+            result = run_streamed(system, streams, progress=True)
+        else:
+            result = run_offline(system, streams, progress=True)
     system.shutdown()
 
     ate = sim.ate_rmse(streams.gt_poses, result.poses)

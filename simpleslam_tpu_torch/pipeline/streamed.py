@@ -1,7 +1,8 @@
 """Streamed odometry executor: device-resident pose chain, one result read
 per batch.
 
-Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo mode, one device):
+Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo and lio mode, one
+device):
 
 - scans are voxel-downsampled, spatially sorted and quantized to int16 on
   the host by a producer thread (``_ScanPrep``: chunked GIL-free C++ calls,
@@ -9,13 +10,18 @@ Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo mode, one device):
 - keyframe clouds are uploaded once into the map manager's device store, and
   submap targets are rebuilt on the device from it (``update_map_device``),
   double-buffered behind the next registration batch;
-- K scans run as one batch (``_batch_body``): the constant-velocity
-  prediction (step capped at ``STEP_CAP``), ``loam.gn_loop`` (one launch of
-  the kernel K3 per scan on CUDA), the planar clamp and the NaN guard, with
+- K scans run as one batch (``_batch_body``): the prediction (lo: constant
+  velocity with the step capped at ``STEP_CAP``; lio: ``odom2map`` composed
+  with the scan's EKF local odometry), the configured register
+  (``loam.gn_loop``: one launch of the kernel K3 per scan on CUDA; NDT and
+  VGICP: their fixed-count loops), the planar clamp and the NaN guard, with
   no host read in between and the pose chain
   (``pose_prev``, ``pose_prev2``, ``odom2map``) kept in device tensors that
   feed the next batch directly. The batch's packed (K, 21) result rows are
   read back once, when the batch retires;
+- lio mode fuses the wheel+IMU tape on the host in 4096-event chunks, just
+  far enough ahead of each batch (``_LocalOdomFeeder``), and uploads the
+  batch's (K, 4, 4) local odometry with its scans;
 - keyframe admission, backend passes and loop closure run at batch
   boundaries, behind the odometry by up to ``tpu.pipeline_depth`` batches:
   on a resident worker thread (``_BackendWorker``), or inline with
@@ -26,8 +32,9 @@ Port of ``simpleslam_tpu/pipeline/streamed.py`` (lo mode, one device):
 
 The reference's one-program ``lax.scan`` over the batch is a Python loop
 over its scans here that only enqueues device work (the GN loop and its exit
-tests run inside K3). Not ported yet: lio mode (``_LocalOdomFeeder``, ROADMAP
-item 9) and the mesh-sharded batch (``tpu.mesh_devices``, item 12).
+tests run inside K3; NDT and VGICP run their iteration a fixed number of
+times with a frozen state once done). Not ported yet: the mesh-sharded batch
+(``tpu.mesh_devices``, ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..models import filter as flt
 from ..models.mapmanager import KeyFrame, KFEvent
 from ..models.registration import register_kind
 from ..ops import geometry as geo
@@ -74,13 +82,16 @@ def upload_cloud(raw_q: torch.Tensor) -> PointCloud:
 
 def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
                 pose_prev2: torch.Tensor, odom2map: torch.Tensor, kind: str,
-                clamp: bool, degen: float, jump_cap: float = 0.0):
+                clamp: bool, degen: float, jump_cap: float = 0.0,
+                local_odoms: Optional[torch.Tensor] = None):
     """K odometry steps on the device chain.
 
     ``ds_stack`` is (K, C, 3) int16 host-prepped scans (validity from the
-    UPLOAD_PAD sentinel). Returns ((pose_K, pose_{K-1}, odom2map), packed
-    (K, 21)), a packed row being [pose16, converged, fitness, gn_iters,
-    gn_gathers, n_valid]. ``odom2map`` passes through in lo mode.
+    UPLOAD_PAD sentinel). ``local_odoms`` is the (K, 4, 4) EKF local
+    odometry of the scans in lio mode, None in lo mode. Returns ((pose_K,
+    pose_{K-1}, odom2map_K), packed (K, 21)), a packed row being [pose16,
+    converged, fitness, gn_iters, gn_gathers, n_valid]. ``odom2map`` passes
+    through in lo mode.
 
     Nothing in here reads a value from the device: every decision (the NaN
     guard, the jump rejection) is a ``torch.where``, so on the GPU the K
@@ -88,20 +99,26 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
     is that of its packed rows when it retires.
     """
     rows = []
-    prev, prev2 = pose_prev, pose_prev2
-    for raw_q in ds_stack:
+    prev, prev2, o2m = pose_prev, pose_prev2, odom2map
+    for k, raw_q in enumerate(ds_stack):
         pc = upload_cloud(raw_q)
-        # constant-velocity prediction with the extrapolated per-scan
-        # translation capped unconditionally: once two chain poses disagree
-        # by D, uncapped extrapolation re-applies D every scan (measured in
-        # the reference package: a 3 m disagreement grew to 1e33 m within
-        # ~40 keyframes); no sensor moves 5 m between 10 Hz scans
-        step = geo.pose_compose(geo.pose_inverse(prev2), prev)
-        st_t = step[:3, 3]
-        scale = torch.clamp(
-            STEP_CAP / torch.clamp(torch.linalg.norm(st_t), min=1e-9), max=1.0)
-        step = geo.make_pose(step[:3, :3], st_t * scale)
-        init = geo.pose_compose(prev, step)
+        if local_odoms is not None:
+            # loose coupling: predict through odom2map (LidarOdometry.cpp:129)
+            init = geo.pose_compose(o2m, local_odoms[k])
+        else:
+            # constant-velocity prediction with the extrapolated per-scan
+            # translation capped unconditionally: once two chain poses
+            # disagree by D, uncapped extrapolation re-applies D every scan
+            # (measured in the reference package: a 3 m disagreement grew to
+            # 1e33 m within ~40 keyframes); no sensor moves 5 m between
+            # 10 Hz scans
+            step = geo.pose_compose(geo.pose_inverse(prev2), prev)
+            st_t = step[:3, 3]
+            scale = torch.clamp(
+                STEP_CAP / torch.clamp(torch.linalg.norm(st_t), min=1e-9),
+                max=1.0)
+            step = geo.make_pose(step[:3, :3], st_t * scale)
+            init = geo.pose_compose(prev, step)
         pose, conv, fit, iters, gathers, support = register_kind(
             pc, target, init, kind, degen)
         if clamp:  # planar clamp each frame (frontend.planar_clamp config)
@@ -114,13 +131,16 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
             jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
             ok = ok & (jump <= torch.where(conv, jump_cap, jump_cap / 3.0))
         pose = torch.where(ok, pose, init)
+        if local_odoms is not None:
+            # odom2map update (LidarOdometry.cpp:238)
+            o2m = geo.pose_compose(pose, geo.pose_inverse(local_odoms[k]))
         tail = torch.stack([(ok & conv).to(torch.float32),
                             fit.to(torch.float32), iters.to(torch.float32),
                             gathers.to(torch.float32),
                             support.to(torch.float32)])
         rows.append(torch.cat([pose.reshape(16), tail]))
         prev2, prev = prev, pose
-    return (prev, prev2, odom2map), torch.stack(rows)
+    return (prev, prev2, o2m), torch.stack(rows)
 
 
 def _apply_delta(delta: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
@@ -297,9 +317,92 @@ class _ScanPrep:
         self.thread.join(timeout=5.0)
 
 
+class _LocalOdomFeeder:
+    """Incremental wheel+IMU fusion for lio mode.
+
+    Fuses the event tape in fixed 4096-event chunks through
+    ``models/filter.ekf_replay_chunk`` (the filter state is carried across
+    chunks, bit-identical to the whole-tape replay), advancing only far
+    enough to finalize the local odoms each scan batch needs — the
+    streaming, head-free shape of the reference proxy
+    (EkfOdomProxy.cpp:185-248). The replay runs on the host (see
+    ``models/filter.py`` for why).
+
+    Padding note: pad rows perturb the carry (an IMU pad row consumes the
+    update flag and shrinks P on a zero-innovation update), so only the
+    final chunk — after which no real event follows — is ever padded.
+    """
+
+    CHUNK = 4096
+
+    def __init__(self, streams, scan_stamps: np.ndarray,
+                 local_np: np.ndarray):
+        (self.ev_stamps, self.ev_iswheel, self.ev_xy, self.ev_wyaw,
+         self.ev_iyaw) = flt.build_tape_arrays(
+            streams.wheel_stamps, streams.wheel_poses,
+            streams.imu_stamps, streams.imu_quats)
+        self.n_events = len(self.ev_stamps)
+        self.carry = flt.ekf_carry0()
+        self.pos = 0
+        self.lo_stamps = np.zeros(0)
+        self.lo_states = np.zeros((0, 3))
+        self.scan_stamps = scan_stamps
+        self.local_np = local_np
+        self.filled = 0  # scans whose local_np row is final
+        self.n_chunks = 0
+
+    def _advance_chunk(self) -> None:
+        lo, hi = self.pos, min(self.pos + self.CHUNK, self.n_events)
+        sl = slice(lo, hi)
+        im = ~self.ev_iswheel[sl]
+        last_iyaw = float(self.ev_iyaw[sl][im][-1]) if im.any() else 0.0
+        tape = flt.pad_tape_chunk(
+            self.ev_stamps[sl], self.ev_iswheel[sl], self.ev_xy[sl],
+            self.ev_wyaw[sl], self.ev_iyaw[sl], self.CHUNK, last_iyaw)
+        self.carry, res = flt.ekf_replay_chunk(self.carry, tape)
+        self.lo_stamps = np.concatenate(
+            [self.lo_stamps, res.stamps.astype(np.float64)[res.emitted]])
+        self.lo_states = np.concatenate(
+            [self.lo_states, res.states.astype(np.float64)[res.emitted]])
+        self.pos = hi
+        self.n_chunks += 1
+
+    def ensure(self, hi_scan: int) -> None:
+        """Finalize ``local_np`` rows [0, hi_scan] (blocking fuse as needed).
+
+        A row is final once an emitted odom with a later stamp exists (the
+        nearest-of-two bracket is then decided) or the tape is exhausted.
+        """
+        if hi_scan < self.filled:
+            return
+        t = float(self.scan_stamps[hi_scan])
+        while self.pos < self.n_events and (
+                len(self.lo_stamps) == 0 or self.lo_stamps[-1] <= t):
+            self._advance_chunk()
+        if len(self.lo_stamps) == 0:
+            raise ValueError("lio mode needs wheel odometry in the stream")
+        # nearest-stamp local odom per scan (the vectorized
+        # Frontend::getClosestLocalOdom, Frontend.cpp:25-52)
+        ts = self.scan_stamps[self.filled: hi_scan + 1]
+        nearest = np.clip(np.searchsorted(self.lo_stamps, ts), 1,
+                          len(self.lo_stamps) - 1)
+        nearest -= (ts - self.lo_stamps[nearest - 1]
+                    < self.lo_stamps[nearest] - ts).astype(int)
+        for k, st in zip(range(self.filled, hi_scan + 1),
+                         self.lo_states[nearest]):
+            c, sn = np.cos(st[2]), np.sin(st[2])
+            self.local_np[k, 0, 0] = c
+            self.local_np[k, 0, 1] = -sn
+            self.local_np[k, 1, 0] = sn
+            self.local_np[k, 1, 1] = c
+            self.local_np[k, 0, 3] = st[0]
+            self.local_np[k, 1, 3] = st[1]
+        self.filled = hi_scan + 1
+
+
 def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                  sync_every: int = 16, progress: bool = False) -> SlamResult:
-    """Replay ``streams`` through the streamed executor (lo mode), in
+    """Replay ``streams`` through the streamed executor (lo or lio mode), in
     batches of ``sync_every`` scans."""
     lg = Logger.get_instance()
     cfg = Params.get_instance()
@@ -307,10 +410,6 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
         raise NotImplementedError(
             "the mesh-sharded streamed batch (tpu.mesh_devices > 0) is not "
             "ported to simpleslam_tpu_torch yet (ROADMAP item 12)")
-    if system.mode != "lo":
-        raise NotImplementedError(
-            "lio mode is not ported to simpleslam_tpu_torch yet (ROADMAP "
-            "item 9)")
     timers = StageTimers()
     tt_all = TicToc()
     tt = TicToc()
@@ -336,6 +435,7 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
         dsc = min(dsc, mm.kf_capacity)  # scan rows must fit kf-store rows
         system._streamed_scan_capacity = dsc
     kind = system.register.KIND
+    mode = system.mode
     clamp = bool(cfg["frontend"].get("planar_clamp", True))
     degen = float(system.register.degen_per_row)
     # jump rejection defaults off (results are used as-is, as the reference
@@ -356,9 +456,22 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     retired_hi = 0                                 # scans recorded so far
     n_conv = 0
 
-    # spatial sort at the LOAM dense-map grid
-    prep = _ScanPrep(streams.scans, grid, dsc,
-                     sort_grid=float(system.register.TARGET_GRID))
+    # lio: fuse the wheel+IMU stream incrementally in chunks (the feeder
+    # advances just past each batch's stamps, keeping the EKF off the
+    # startup critical path) and pick the closest local odom per scan
+    local_np = np.tile(np.eye(4, dtype=np.float32), (n_scans, 1, 1))
+    feeder: Optional[_LocalOdomFeeder] = None
+    if mode == "lio":
+        tt.tic()
+        feeder = _LocalOdomFeeder(streams, scan_stamps, local_np)
+        feeder.ensure(0)  # the chain anchor needs scan 0's local odom
+        timers.add("ekf_replay", tt.toc())
+
+    # spatial sort at the LOAM dense-map grid, or at the NDT/VGICP voxel
+    # resolution (their Gaussian lookups coalesce the same way)
+    sort_grid = getattr(system.register, "TARGET_GRID",
+                        getattr(system.register, "RESOLUTION", 0.0))
+    prep = _ScanPrep(streams.scans, grid, dsc, sort_grid=float(sort_grid))
     # tpu.sync_backend: service keyframe events inline at batch boundaries
     # instead of on the worker thread — throughput pays the serialized
     # solves, accuracy becomes a function of the data alone
@@ -375,15 +488,23 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
 
         si = 0
         start_pose = mm.cur_pose.load().copy()
+        odom2map_np = np.eye(4)
+        if mode == "lio":
+            # odom2map so the chain starts at start_pose for the first
+            # local odom
+            odom2map_np = start_pose @ np.linalg.inv(
+                local_np[0].astype(np.float64))
         if mm.is_submap_empty():
             tt.tic()
             row0, cnt0 = prep.get(0)
-            est_poses[0] = start_pose
+            pose0 = start_pose if mode != "lio" else (
+                odom2map_np @ local_np[0].astype(np.float64))
+            est_poses[0] = pose0
             n_conv += 1
-            mm.set_cur_pose(start_pose)
+            mm.set_cur_pose(pose0)
             xyz0 = _dequant(row0, cnt0)
             lg.warn("at first, no submap here for now, build the map!!")
-            kf0 = KeyFrame(float(scan_stamps[0]), start_pose, xyz0)
+            kf0 = KeyFrame(float(scan_stamps[0]), pose0, xyz0)
             if mm.put_keyframe(kf0):
                 with mm.kf_obj.lock:
                     kf_idx = len(mm.kf_obj.keyframes) - 1
@@ -400,14 +521,21 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
 
         pose_prev = _pose_t(est_poses[si - 1] if si else start_pose)
         pose_prev2 = pose_prev  # zero-velocity start
-        odom2map = _pose_t(np.eye(4))
+        odom2map = _pose_t(odom2map_np)
         kf_rows = {}  # scan idx -> prepped row kept for keyframe upload
 
         def dispatch(si: int, pose_prev, pose_prev2, odom2map):
-            """Prep + upload + register one batch (a final partial batch
-            registers only its real scans: the Python loop needs no fixed
-            K)."""
+            """Prep + upload + register one batch. A final partial batch
+            registers only its real scans (the Python loop needs no fixed
+            K), so the chain it leaves is that of the last real scan: the
+            reference pads the tail to K by repeating the last scan and
+            then rewinds the poses and ``odom2map``; here there is nothing
+            to rewind."""
             batch = list(range(si, min(si + sync_every, n_scans)))
+            if feeder is not None:
+                tt.tic()
+                feeder.ensure(batch[-1])  # finalize this batch's local odoms
+                timers.add("ekf_replay", tt.toc())
             mm.commit_pending_target()  # double-buffer swap boundary
             target = mm.get_target()
             tt.tic()
@@ -419,11 +547,14 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             timers.add("prep", tt.toc())
             tt.tic()
             rows_d = torch.from_numpy(rows).to(dev)
+            locals_d = (torch.from_numpy(
+                local_np[batch[0]: batch[-1] + 1]).to(dev)
+                if mode == "lio" else None)
             timers.add("upload", tt.toc())
             tt.tic()
             (pose_prev, pose_prev2, odom2map), packed = _batch_body(
                 rows_d, target, pose_prev, pose_prev2, odom2map, kind, clamp,
-                degen, jump_cap)
+                degen, jump_cap, locals_d)
             timers.add("dispatch", tt.toc())
             # the map rebuild runs behind the batch just registered and is
             # committed at the next dispatch (double buffering)
@@ -522,10 +653,12 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 ent[2] = delta_np @ ent[2]
             stats["n_deltas"] += 1
 
-        def _consume_reloc() -> None:
+        def _consume_reloc(si: int) -> None:
             """An /initialpose reloc (LidarOdometry.set_reloc_flag) resets the
-            device chain at the next batch boundary (RelocDataProxy role)."""
-            nonlocal pose_prev, pose_prev2
+            device chain at the next batch boundary (RelocDataProxy role);
+            in lio mode it also re-anchors odom2map so the next init equals
+            the reloc pose (LidarOdometry.cpp:121-129's reloc branch)."""
+            nonlocal pose_prev, pose_prev2, odom2map
             lo = system.lidar_odometry
             with lo._reloc_lock:
                 if not lo.reloc:
@@ -535,6 +668,11 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             lg.info("reloc-ing...")
             pose_prev = _pose_t(rpose)
             pose_prev2 = pose_prev  # zero-velocity restart
+            if feeder is not None:
+                nxt = min(si, n_scans - 1)
+                feeder.ensure(nxt)
+                odom2map = _pose_t(rpose @ np.linalg.inv(
+                    local_np[nxt].astype(np.float64)))
 
         # pipelined drive: up to ``depth`` batches are dispatched before the
         # oldest retires, so keyframe admission and corrections reach the chain
@@ -559,7 +697,7 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 if worker is not None:
                     for delta_, kfc_ in worker.drain():
                         _apply_backend_delta(delta_, kfc_)
-                _consume_reloc()
+                _consume_reloc(si)
                 batch, packed, pose_prev, pose_prev2, odom2map = dispatch(
                     si, pose_prev, pose_prev2, odom2map)
                 si = batch[-1] + 1
@@ -622,6 +760,7 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                             if stats["n_batches"] else 0),
             "n_deltas": stats["n_deltas"],
             "n_dropped_deltas": stats["n_dropped_deltas"],
+            "ekf_chunks": feeder.n_chunks if feeder is not None else 0,
             # the reference's evaluation artifact: optimized keyframe TUM
             "kf_stamps": kf_stamps,
             "kf_poses": kf_poses,

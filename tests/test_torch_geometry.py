@@ -104,3 +104,35 @@ def test_symeig3x3_smallest(kind):
     _close(lam_t, lam_j, atol=1e-5 * scale)
     np.testing.assert_allclose(np.abs(v_t.numpy()), np.abs(np.asarray(v_j)),
                                atol=1e-4)
+
+
+def test_yaw_pitch_roll_round_trip_and_singular_branch():
+    rng = np.random.default_rng(11)
+    ypr = rng.uniform(-1.2, 1.2, size=(64, 3)).astype(np.float32)
+    ypr[:, 0] *= 2.5                                  # yaw over (-3, 3)
+    R_t, R_j = tgeo.ypr_to_rot(torch.tensor(ypr)), jgeo.ypr_to_rot(ypr)
+    _close(R_t, R_j)
+    _close(tgeo.rot_to_ypr(R_t), jgeo.rot_to_ypr(R_j), atol=2e-5)
+    _close(tgeo.rot_to_ypr(R_t), ypr, atol=2e-5)
+    # pitch of +-90 degrees exactly: the singular branch (yaw 0)
+    sing = np.zeros((2, 3, 3), np.float32)
+    sing[0, 2, 0], sing[0, 0, 2], sing[0, 1, 1] = -1.0, 1.0, 1.0
+    sing[1, 2, 0], sing[1, 0, 2], sing[1, 1, 1] = 1.0, -1.0, 1.0
+    got = tgeo.rot_to_ypr(torch.tensor(sing))
+    _close(got, jgeo.rot_to_ypr(sing))
+    assert got[:, 0].abs().max() == 0
+    _close(got[:, 1].abs(), np.full(2, np.pi / 2, np.float32))
+
+
+def test_correct_angles_wraps_about_the_reference():
+    rng = np.random.default_rng(12)
+    a = rng.uniform(-20, 20, size=256).astype(np.float32)
+    ref = rng.uniform(-4, 4, size=256).astype(np.float32)
+    got = tgeo.correct_angles(torch.tensor(a), torch.tensor(ref))
+    _close(got, jgeo.correct_angles(a, ref), atol=1e-5)
+    assert float((got - torch.tensor(ref)).abs().max()) <= np.pi + 1e-5
+    # half-way cases round to even, as the reference's round does
+    half = torch.tensor([np.pi, 3 * np.pi, -np.pi], dtype=torch.float64)
+    want = jgeo.correct_angles(half.numpy(), np.zeros(3))
+    _close(tgeo.correct_angles(half, torch.zeros(3, dtype=torch.float64)),
+           want, atol=1e-12)

@@ -1,11 +1,15 @@
 """The PyTorch port as a package: it stands alone (no jax, no triton, no
-reference package), copies the simulator and config schema exactly, refuses
-the parts it has not ported, runs its CLI (offline and streamed, backend and
-loop closure on), reports which host-helper path it runs, and its GPU smoke
-script fails cleanly where there is no GPU."""
+reference package, host helpers built from its own source in a directory
+that holds nothing else), copies the simulator and config schema exactly,
+refuses the parts it has not ported, runs its CLI (offline and streamed,
+backend and loop closure on, lio mode, the NDT register, a profiler trace),
+reports which host-helper path it runs, and its GPU smoke script fails
+cleanly where there is no GPU."""
 
 import copy
+import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -52,7 +56,10 @@ def test_imports_without_jax_triton_or_reference():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 24, names\n"
+        "for n in ('models.filter', 'ops.ndt', 'ops.vgicp', 'pipeline.threaded',\n"
+        "          'utils.profiling'):\n"
+        "    assert p.__name__ + '.' + n in names, n\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
         "assert not torch.backends.cudnn.allow_tf32\n"
@@ -85,14 +92,29 @@ def test_config_schema_is_the_reference_one_plus_the_device_key():
 
 @pytest.mark.parametrize("cfg,item", [
     ({"tpu": {"mesh_devices": 2}}, "item 12"),
-    ({"mode": "lio", "backend": {"enable": False}}, "item 9"),
-    ({"backend": {"enable": False}, "frontend": {"pcr": "ndt"}}, "item 10"),
-    ({"backend": {"enable": False}, "frontend": {"pcr": "vgicp"}}, "item 10"),
     ({"backend": {"enable": False}, "vis": {"enable": True}}, "item 11"),
-], ids=["mesh", "lio", "ndt", "vgicp", "vis"])
+], ids=["mesh", "vis"])
 def test_unported_parts_are_refused(cfg, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tapp.SlamSystem(dict(cfg, torch={"device": "cpu"}))
+
+
+@pytest.mark.parametrize("cfg,kind", [
+    ({"mode": "lio", "backend": {"enable": False}}, "loam"),
+    ({"backend": {"enable": False}, "frontend": {"pcr": "ndt"}}, "ndt"),
+    ({"backend": {"enable": False}, "frontend": {"pcr": "vgicp"}}, "vgicp"),
+    ({"mode": "lio", "backend": {"enable": True},
+      "frontend": {"pcr": "vgicp"}}, "vgicp"),
+], ids=["lio", "ndt", "vgicp", "lio_vgicp_backend"])
+def test_every_mode_and_register_is_accepted(cfg, kind):
+    """What earlier slices refused: lio mode and the NDT / VGICP odometry
+    registers build their object graph now (lio with its EKF proxy wired to
+    the frontend's deque)."""
+    system = tapp.SlamSystem(dict(cfg, torch={"device": "cpu"}))
+    assert system.register.KIND == kind
+    assert (system.ekf_proxy is not None) == (cfg.get("mode") == "lio")
+    if system.ekf_proxy is not None:
+        assert system.frontend.local_odom is system.ekf_proxy.local_odom
 
 
 def test_cli_refuses_backend_config(tmp_path):
@@ -115,6 +137,46 @@ def test_cli_streamed_run_with_backend_and_loop_closure(tmp_path, capsys):
     for name in ("fg.g2o", "tum.txt", "0.pcd"):
         assert (out / name).is_file(), name
     assert "dispatch" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("flags,stage", [
+    (["--mode", "lio", "--streamed"], "ekf_replay"),
+    (["--pcr", "ndt"], "odometry"),
+], ids=["lio_streamed", "ndt"])
+def test_cli_mode_and_register_flags(tmp_path, capsys, flags, stage):
+    cfg = tmp_path / "cpu.json"
+    cfg.write_text('{"backend": {"enable": false}, "torch": {"device": "cpu"},'
+                   ' "tpu": {"scan_capacity": 8192}}')
+    out = tmp_path / "map"
+    assert tapp.main(["--synthetic", "--config", str(cfg), "--scans", "4",
+                      "--out", str(out)] + flags) == 0
+    assert (out / "tum.txt").is_file()
+    assert stage in capsys.readouterr().out
+    want = {"--mode": ("mode",), "--pcr": ("frontend", "pcr")}[flags[0]]
+    got = TParams.get_instance()
+    for key in want:
+        got = got[key]
+    assert got == flags[1]
+
+
+def test_cli_trace_writes_a_chrome_trace(tmp_path):
+    """``python -m simpleslam_tpu_torch.pipeline.app --trace DIR`` captures
+    the run under torch.profiler; the offline harness's stage annotations
+    are on its timeline. (A process of its own, as a user runs it: this
+    one has imported jax, whose profiler shares the tracing library.)"""
+    cfg = tmp_path / "cpu.json"
+    cfg.write_text('{"backend": {"enable": false}, "torch": {"device": "cpu"},'
+                   ' "tpu": {"scan_capacity": 8192}}')
+    r = subprocess.run(
+        [sys.executable, "-m", "simpleslam_tpu_torch.pipeline.app",
+         "--synthetic", "--config", str(cfg), "--scans", "10", "--out",
+         str(tmp_path / "map"), "--trace", str(tmp_path / "tr")],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    names = {e.get("name") for e in json.loads(
+        (tmp_path / "tr" / "trace.json").read_text())["traceEvents"]}
+    assert {"odometry", "map_update"} <= names
+    assert any(n and n.startswith("aten::") for n in names)
 
 
 def test_cli_synthetic_run(tmp_path, capsys):
@@ -144,6 +206,47 @@ def test_native_backend_is_reported():
     assert native.backend() in ("cpp", "numpy")
     if native.backend() == "numpy":
         assert native._why_numpy
+
+
+def test_native_source_is_the_ports_own():
+    pkg = os.path.join(REPO, "simpleslam_tpu_torch")
+    assert os.path.commonpath([native.SRC, pkg]) == pkg
+    assert os.path.isfile(native.SRC)
+    assert os.path.commonpath([native.BUILD_DIR, pkg]) == pkg
+
+
+def test_host_helpers_build_with_no_other_package_beside(tmp_path):
+    """A copy of the port's package alone in a directory (no reference
+    package next to it) builds and loads its C++ host helpers from its own
+    source, and they run."""
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to build the host helpers")
+    shutil.copytree(
+        os.path.join(REPO, "simpleslam_tpu_torch"),
+        tmp_path / "simpleslam_tpu_torch",
+        ignore=shutil.ignore_patterns("build", "__pycache__"))
+    code = (
+        "import os, sys\n"
+        "for m in ('jax', 'simpleslam_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from simpleslam_tpu_torch import native\n"
+        "here = os.path.realpath(os.getcwd())\n"
+        "assert os.path.realpath(native.SRC).startswith(here), native.SRC\n"
+        "assert native.backend() == 'cpp', native._why_numpy\n"
+        "out = native.pad_cloud(np.ones((5, 3), np.float32), 8, 1e6)\n"
+        "assert np.asarray(out[0]).shape[0] == 8\n"
+        "from simpleslam_tpu_torch.models import filter as flt\n"
+        "tape = flt.pad_tape_chunk(np.arange(4.) * .1, np.array([0, 1, 0, 1], bool),\n"
+        "                          np.zeros((4, 2)), np.zeros(4), np.zeros(4), 4, 0.)\n"
+        "assert flt.ekf_replay(tape).emitted.tolist() == [False, False, False, True]\n"
+        "print('ok', [f for f in os.listdir(native.BUILD_DIR)])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("ok") and "libhostops_" in r.stdout
+    assert sorted(os.listdir(tmp_path)) == ["simpleslam_tpu_torch"]
 
 
 def test_native_fallback_is_reported_not_silent(monkeypatch, caplog):
