@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py [--scans N] [--kernels-only] [--only PATHS]
 
-Drives ``simpleslam_tpu_torch`` (never jax) through twelve phases and fails
-with a nonzero exit on the first problem:
+Drives ``simpleslam_tpu_torch`` (never jax) through seventeen phases and
+fails with a nonzero exit on the first problem:
 
 1. environment: card name and power limit (nvidia-smi), torch / CUDA
    versions, TF32 flags; no CUDA device is a failure;
@@ -56,14 +56,44 @@ with a nonzero exit on the first problem:
 11. threaded: ``run_threaded`` in bag mode (ingest, LO, map-update and
    backend threads) with LOAM and the backend on, on those 60 scans: every
    scan processed, ATE inside the streamed limit, K3 once per registration;
-12. the result: a JSON line of the kernels (with the launches of each path:
-   K3's launches, and for K1 and K2 the times their bodies ran as phases of
-   K3, from the recorded gathers and iterations), the nvidia-smi line, and
-   last a JSON line ``{"ok": true, "device": ...}``.
+12. K4 ``fit_and_linearize_candidates`` against its plain version at path
+   shapes: the streamed full path's last submap as a dense map (grid 2.0,
+   corner gather, 192 candidates per query) and as a sorted voxel table
+   (grid 1.0, slab 8, 27-cell gather, 216 candidates), its last scan
+   prepped at the latched capacity: n_valid and plane gates identical, the
+   normal equations within the reference's tolerances, two launches
+   bit-identical; CUDA-event medians, the bound and the plain version's time;
+13. ``loam.scan2map`` on both of those targets over the path's last 48 scans
+   from the recorded pose and from the 0.25 m offset: K4 launched once per
+   gather, K2 once per other iteration, no plain version on CUDA, and the
+   poses beside those of the merged map from the same start (different
+   candidate sets: int16 rows there, f32 here, 24 points per 2 m voxel
+   against 8 per 1 m voxel; the gap is printed and bounded);
+14. the recorded-data path at full width: the bench sequence written as a
+   ROS1 bag (``none`` chunks; a 5-scan ``lz4`` bag beside it), read back,
+   and run through ``app.main --bag ... --streamed`` in the bench's ``full``
+   config with ``vis.enable`` and an output directory; ``eval.evaluate`` of
+   the written ``tum.txt`` against the ground-truth TUM file beside the
+   bench's in-memory ``full`` run's keyframes; K3 once per registration, PLY
+   files written; every scan's pose within 1e-3 m of an in-memory run of the
+   same config at the CLI's 16-scan batches, and the same keyframes in the
+   two ``tum.txt`` files; then the same from a KITTI velodyne directory of 60
+   scans;
+15. ``run_streamed(device_probe=True)`` on the ``lo`` config: ``device_exec``,
+   ``fetch_wait`` and ``fetch_xfer`` per batch and ``roofline.utilization``
+   of the batch against the card's peaks (no share above 1);
+16. ``memcheck`` on the card, 4 segments of 48 scans: its JSON, ``ok``
+   required;
+17. the result: a JSON line of the kernels K1-K4 (with the launches of each
+   path: K3's launches, for K1 and K2 the times their bodies ran as phases
+   of K3, from the recorded gathers and iterations, and K4's launches on the
+   ``scan2map`` paths of 13), the nvidia-smi line, and last a JSON line
+   ``{"ok": true, "device": ...}``.
 
-``--only lio,ndt,vgicp,threaded`` drives just the named paths of 8-11 after
-the build (a quick check while working on one of them) and prints no result
-line.
+``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck`` (any subset)
+drives just the named paths of 8-16 after the build (a quick check while
+working on one of them; ``k4`` and ``recorded`` run the streamed full config
+first, for its inputs) and prints no result line.
 """
 
 from __future__ import annotations
@@ -74,6 +104,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 # cuBLAS is deterministic only with a fixed workspace; set before CUDA starts
@@ -138,7 +169,7 @@ def time_ms(fn, reps: int = 50) -> float:
 
 
 def bounds(n_q: int, n_valid: int, n_cand: int, gathers: int = 1,
-           iters: int = 1) -> dict:
+           iters: int = 1, n_cand_ok=None) -> dict:
     """The least time (ms) the card could take for each kernel's work on
     these inputs, and what sets it: bytes moved once over the memory rate
     against f32 operations over the peak rate.
@@ -149,7 +180,11 @@ def bounds(n_q: int, n_valid: int, n_cand: int, gathers: int = 1,
     rounds) plus about 520 per query (plane fit, gates, the 28-term row).
     K2 streams planes and queries, about 120 operations per query. K3 reads
     the rows once per K1 phase it ran and the scan once; its K2 phases read
-    nothing; about 1,500 operations per small step.
+    nothing; about 1,500 operations per small step. K4 (when ``n_cand_ok``,
+    the count of set candidate flags, is given) needs the flag of every
+    candidate of a valid query (1 byte) and the coordinates of those whose
+    flag is set (12 bytes): a masked-out query needs no candidate, and its
+    flags are all false.
     """
     row = n_cand * 3 * 2
     sums = (36 + 6 + 1) * 4
@@ -159,12 +194,65 @@ def bounds(n_q: int, n_valid: int, n_cand: int, gathers: int = 1,
     k2_ops = n_q * 120
     k3_bytes = gathers * n_valid * row + n_q * (12 + 1) + 64 + 80
     k3_ops = gathers * k1_ops + (iters - gathers) * k2_ops + iters * 1500
+    work = [("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
+            ("k3", k3_bytes, k3_ops)]
+    if n_cand_ok is not None:
+        # the candidate stream, then the queries, the planes and the sums as
+        # K1; K1's operations
+        k4_bytes = n_valid * n_cand + n_cand_ok * 12 + n_q * (12 + 4 + 1) \
+            + n_q * (12 + 12 + 1) + sums
+        work.append(("k4", k4_bytes, k1_ops))
     out = {}
-    for name, nbytes, ops in (("k1", k1_bytes, k1_ops), ("k2", k2_bytes, k2_ops),
-                              ("k3", k3_bytes, k3_ops)):
+    for name, nbytes, ops in work:
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
         out[name] = (1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations")
     return out
+
+
+def kernel_device_ms(kernel_name: str, fn, launches: int = 20):
+    """Median device milliseconds of the CUDA kernel whose name contains
+    ``kernel_name`` over ``launches`` calls of ``fn``, from torch.profiler;
+    None when three windows in a row recorded no such device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(launches):
+                fn()
+            torch.cuda.synchronize()
+        durs = [e.time_range.end - e.time_range.start for e in prof.events()
+                if kernel_name in e.name
+                and e.device_type == torch.autograd.DeviceType.CUDA]
+        if durs:
+            return 1e-3 * statistics.median(durs)
+    return None
+
+
+EVENTS_HOW = "CUDA events around 50 back-to-back launches"
+
+
+def kernel_device_ms_how(kernel_name: str, fn, bare=None):
+    """(device milliseconds per launch of the kernel, how it was measured).
+    A profiler window now and then comes back without a device event:
+    ``kernel_device_ms`` takes up to three, then CUDA events around 50
+    back-to-back calls of ``bare`` (``fn`` unless given) stand in. That is an
+    upper bound: the gaps between launches, and any other kernel ``bare``
+    launches, count."""
+    dev = kernel_device_ms(kernel_name, fn)
+    if dev is not None:
+        return dev, "torch.profiler"
+    bare = bare or fn
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    bare()
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(50):
+        bare()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / 50.0, EVENTS_HOW
 
 
 def device_activity(prof):
@@ -465,8 +553,6 @@ def time_fused(vm, src, pose, card: str, label: str) -> dict:
     offset (a regather). From the three device times and their counts, what
     an iteration costs with a K1 phase and with a K2 phase; and the grid
     barrier's cost alone."""
-    from torch.profiler import ProfilerActivity, profile
-
     from simpleslam_tpu_torch.ops import loam
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
@@ -481,36 +567,30 @@ def time_fused(vm, src, pose, card: str, label: str) -> dict:
         t[key] = time_ms(lambda: loam.gn_loop(src, vm, start))
         t[key + "_plain"] = time_ms(
             lambda: loam.gn_loop_stepwise(src, vm, start), 10)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                loam.gn_loop(src, vm, start)
-            torch.cuda.synchronize()
-        durs = [e.time_range.end - e.time_range.start for e in prof.events()
-                if "gn_loop_kernel" in e.name
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        dev = (1e-3 * statistics.median(durs)) if durs else None
-        t[key + "_dev"] = dev
-        if dev is not None:
-            rows.append((gathers, iters - gathers, dev))
+        start_c = start.to(torch.float32).contiguous()
+        dev, how = kernel_device_ms_how(
+            "gn_loop_kernel", lambda: loam.gn_loop(src, vm, start),
+            lambda: lk.gn_loop_fused(src.xyz, src.mask, vm, start_c,
+                                     loam.MAX_ITERS, 0.0))
+        t[key + "_dev"], t[key + "_dev_how"] = dev, how
+        rows.append((gathers, iters - gathers, dev))
         print(f"  K3 from the {tag} start ({iters} iterations, {gathers} K1 "
               f"phases): median {t[key]:.4f} ms per call, device time "
-              f"{'not measured' if dev is None else f'{dev:.4f} ms'} per "
-              f"launch, stepwise {t[key + '_plain']:.4f} ms ({card}, {label})")
+              f"{dev:.4f} ms per launch ({how}), stepwise "
+              f"{t[key + '_plain']:.4f} ms ({card}, {label})")
     one = time_ms(lambda: lk.barrier_probe(src.xyz.device, 1))
     many = time_ms(lambda: lk.barrier_probe(src.xyz.device, 257))
     t["barrier"] = (many - one) / 256.0
     print(f"  one grid barrier {1e3 * t['barrier']:.2f} us ({card})")
-    if len(rows) == 3:
-        a = np.array([[1.0, g, k] for g, k, _ in rows])
-        if abs(np.linalg.det(a)) > 1e-9:
-            fixed, k1_it, k2_it = np.linalg.solve(
-                a, np.array([d for _, _, d in rows]))
-            print(f"  K3 device time split from those three: {1e3 * fixed:.1f}"
-                  f" us per launch + {1e3 * k1_it:.1f} us per iteration with "
-                  f"a K1 phase + {1e3 * k2_it:.1f} us per iteration with a K2 "
-                  f"phase (each with its barrier, sums and small step) "
-                  f"({card}, {label})")
+    a = np.array([[1.0, g, k] for g, k, _ in rows])
+    if abs(np.linalg.det(a)) > 1e-9:
+        fixed, k1_it, k2_it = np.linalg.solve(
+            a, np.array([d for _, _, d in rows]))
+        print(f"  K3 device time split from those three: {1e3 * fixed:.1f}"
+              f" us per launch + {1e3 * k1_it:.1f} us per iteration with "
+              f"a K1 phase + {1e3 * k2_it:.1f} us per iteration with a K2 "
+              f"phase (each with its barrier, sums and small step) "
+              f"({card}, {label})")
     return t
 
 
@@ -600,9 +680,11 @@ def launch_counts(rec: GnRecorder) -> dict:
     times K1's and K2's bodies ran as phases of K3."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
-    return {"k3": lk.K3_LAUNCHES, "k1_standalone": lk.K1_LAUNCHES,
+    return {"k3": lk.K3_LAUNCHES, "k4": lk.K4_LAUNCHES,
+            "k1_standalone": lk.K1_LAUNCHES,
             "k2_standalone": lk.K2_LAUNCHES,
-            "plain": lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS,
+            "plain": (lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
+                      + lk.K4_PLAIN_CUDA_CALLS),
             "stepwise": lk.K3_PLAIN_CUDA_CALLS, "registrations": rec.n_reg,
             "k1": rec.k1_phases, "k2": rec.k2_phases}
 
@@ -610,9 +692,9 @@ def launch_counts(rec: GnRecorder) -> dict:
 def describe_launches(c: dict) -> str:
     return (f"K3 launches {c['k3']} for {c['registrations']} registrations "
             f"(K1 phases {c['k1']}, K2 phases {c['k2']} inside them), "
-            f"standalone K1 / K2 launches {c['k1_standalone']} / "
-            f"{c['k2_standalone']}, plain CUDA calls {c['plain']}, stepwise "
-            f"loops on CUDA {c['stepwise']}")
+            f"standalone K1 / K2 / K4 launches {c['k1_standalone']} / "
+            f"{c['k2_standalone']} / {c['k4']}, plain CUDA calls {c['plain']}, "
+            f"stepwise loops on CUDA {c['stepwise']}")
 
 
 def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
@@ -863,13 +945,12 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
               f"({n_valid_q} valid queries of {cap}); measured "
               f"{1e3 * t[k]:.1f} us per wrapper call = "
               f"{100 * bd[k][0] / t[k]:.2f} % of the bound's rate ({card})")
-    if t.get("k3_dev"):
-        print(f"  K3 from the on-pose start ({gathers} K1 phases in {iters} "
-              f"iterations): device time {1e3 * t['k3_dev']:.1f} us per "
-              f"launch = {100 * bd['k3'][0] / t['k3_dev']:.2f} % of the "
-              f"bound's rate; from the offset start ({gathers_o} K1 phases in "
-              f"{iters_o} iterations) bound {1e3 * bd_off['k3'][0]:.3f} us, "
-              f"device {1e3 * (t['k3_off_dev'] or 0):.1f} us ({card})")
+    print(f"  K3 from the on-pose start ({gathers} K1 phases in {iters} "
+          f"iterations): device time {1e3 * t['k3_dev']:.1f} us per "
+          f"launch = {100 * bd['k3'][0] / t['k3_dev']:.2f} % of the "
+          f"bound's rate; from the offset start ({gathers_o} K1 phases in "
+          f"{iters_o} iterations) bound {1e3 * bd_off['k3'][0]:.3f} us, "
+          f"device {1e3 * t['k3_off_dev']:.1f} us ({card})")
     return errs, t, bd
 
 
@@ -1095,15 +1176,547 @@ def threaded_run(streams, card: str) -> dict:
     return launches
 
 
-NEW_PATHS = ("lio", "ndt", "vgicp", "threaded")
+# -- K4 and the other two LOAM targets ----------------------------------------
+TABLE_GRID = 1.0          # sorted table: 27 cells of 1 m cover the 1 m search
+TABLE_SLAB = 8
+TABLE_VOXELS = 65536
+# scan2map on a dense or sorted-table target against the merged map's pose
+# from the same start. The three hold different candidates (merged rows are
+# int16-quantized at about 5.9 mm; the 2 m voxels keep 24 points, the 1 m
+# voxels 8), so the poses agree to the registration's own noise, not to
+# rounding: 1.15 mm / 2.0e-4 rad measured on an NVIDIA H100 80GB HBM3; the
+# limits are a few times that.
+TARGET_GAP_T_MAX = 5e-3   # metres
+TARGET_GAP_R_MAX = 1e-3   # radians
 
 
-def new_paths(which, streams, card: str) -> dict:
-    """Phases 8-11, those named in ``which``: {path name: launch counts}."""
+def other_targets(system):
+    """The streamed path's last submap (the keyframe window of its last map
+    rebuild, transformed and downsampled as ``_fused_window_target`` does)
+    as a dense map and as a sorted voxel table."""
+    from simpleslam_tpu_torch.models.registration import _fused_window_target
+    from simpleslam_tpu_torch.ops import voxel as vox
+
+    mm = system.map_manager
+    dev = system.register.device
+    sel, poses, center = mm._last_build
+    w = mm.kf_window
+    idx = np.zeros(w, np.int64)
+    pose_w = np.tile(np.eye(4, dtype=np.float32), (w, 1, 1))
+    mask_w = np.zeros(w, bool)
+    idx[:len(sel)], pose_w[:len(sel)], mask_w[:len(sel)] = sel, poses, True
+    center_t = torch.tensor(center.astype(np.float32), device=dev)
+    submap = _fused_window_target(
+        mm._kf_store, torch.from_numpy(idx).to(dev),
+        torch.from_numpy(pose_w).to(dev), torch.from_numpy(mask_w).to(dev),
+        center_t, mm.grid_size, lambda ds, _: ds)
+    dense = vox.build_dense_voxel_map(submap, 2.0, center_t, DIMS, SLAB)
+    table = vox.build_voxel_map(submap, TABLE_GRID, center_t, TABLE_VOXELS,
+                                TABLE_SLAB)
+    n_vox = int((table.keys != vox.INVALID_KEY).sum())
+    print(f"last submap: {int(submap.mask.sum())} points of {len(sel)} "
+          f"keyframes; dense map slab {tuple(dense.slab.shape)} f32, sorted "
+          f"table {n_vox} voxels of {TABLE_VOXELS} x {TABLE_SLAB} points")
+    if not 0 < n_vox < TABLE_VOXELS:
+        fail(f"sorted table holds {n_vox} voxels of {TABLE_VOXELS}")
+    return {"dense": dense, "table": table}
+
+
+def hold_k4(label: str, vm, src, sqrt_r, p_on, p_off, card: str):
+    """K4 against its plain version on the candidates that ``vm``'s gather
+    gives one scan's queries, on-pose and perturbed; its planes feed K2.
+    Returns (max abs error, times, candidates per query)."""
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    err = 0.0
+    for tag, p_map in (("on-pose", p_on), ("perturbed", p_off)):
+        tag = f"{label} {tag}"
+        cand, ok = loam.gather_candidates_at(vm, p_map, src.mask)
+        got = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r,
+                                              src.mask)
+        ref = lk.fit_and_linearize_candidates_plain(cand, ok, p_map, sqrt_r,
+                                                    src.mask)
+        torch.cuda.synchronize()
+        err = max(err, compare(f"K4 {tag}", got, ref))
+        g_ok, r_ok = got[3].ok, ref[3].ok
+        mism = int((g_ok != r_ok).sum())
+        both = g_ok & r_ok
+        dn = float((got[3].normal[both] - ref[3].normal[both]).abs().max())
+        dc = float((got[3].centroid[both] - ref[3].centroid[both]).abs().max())
+        print(f"  K4 {tag}: {cand.shape[1]} candidates per query, plane ok "
+              f"{int(g_ok.sum())} vs plain {int(r_ok.sum())}, mismatch {mism} "
+              f"of {g_ok.numel()}; max |d normal| {dn:.3e}, max |d centroid| "
+              f"{dc:.3e} m")
+        if mism:
+            fail(f"K4 {tag}: plane gates differ from the plain version")
+        again = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r,
+                                                src.mask)
+        if not all(torch.equal(a, b) for a, b in zip(
+                (*got[:3], *got[3]), (*again[:3], *again[3]))):
+            fail(f"K4 {tag}: two launches differ: not deterministic")
+        # K4's planes serve K2 on the following iterations: at the same pose
+        # K2 gives K4's sums (per thread there, per warp here, so they may
+        # round apart)
+        compare(f"K2 on K4's planes, {tag}",
+                lk.plane_normal_equations(got[3], p_map, sqrt_r), got)
+    # the gather, K4 and K2 of one refresh with sync debugging set to raise:
+    # no hidden host read in the new gathers or the wrapper
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cand, ok = loam.gather_candidates_at(vm, p_off, src.mask)
+        lin = lk.fit_and_linearize_candidates(cand, ok, p_off, sqrt_r,
+                                              src.mask)
+        lk.plane_normal_equations(lin[3], p_on, sqrt_r)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  K4 {label}: gather + K4 + K2 ran with sync debugging set to "
+          "raise (no host synchronisation)")
+    cand, ok = loam.gather_candidates_at(vm, p_on, src.mask)
+    t = {"k4": time_ms(lambda: lk.fit_and_linearize_candidates(
+             cand, ok, p_on, sqrt_r, src.mask)),
+         "k4_plain": time_ms(lambda: lk.fit_and_linearize_candidates_plain(
+             cand, ok, p_on, sqrt_r, src.mask), 20),
+         "gather": time_ms(lambda: loam.gather_candidates_at(vm, p_on,
+                                                             src.mask), 20)}
+    t["k4_dev"], t["k4_dev_how"] = kernel_device_ms_how(
+        "fit_and_linearize_candidates_kernel",
+        lambda: lk.fit_and_linearize_candidates(cand, ok, p_on, sqrt_r,
+                                                src.mask))
+    n_cand = int(cand.shape[1])
+    n_valid, n_ok = int(src.mask.sum()), int(ok.sum())
+    if int(ok[~src.mask].sum()):
+        fail(f"K4 {label}: a masked-out query has a set candidate flag")
+    bd = bounds(src.capacity, n_valid, n_cand, n_cand_ok=n_ok)["k4"]
+    dev = t["k4_dev"]
+    print(f"  K4 {label}: median {t['k4']:.4f} ms per wrapper call, device "
+          f"time of the kernel {1e3 * dev:.1f} us ({t['k4_dev_how']}) = "
+          f"{100 * bd[0] / dev:.1f} % of the bound's rate, plain "
+          f"{t['k4_plain']:.4f} ms, the torch gather before it "
+          f"{t['gather']:.4f} ms; bound {1e3 * bd[0]:.3f} us by {bd[1]} "
+          f"({n_valid} valid queries of {src.capacity} x C={n_cand} flags, "
+          f"{n_ok} set flags x 12 B of coordinates) = "
+          f"{100 * bd[0] / t['k4']:.2f} % of the bound's rate per wrapper "
+          f"call ({card})")
+    return err, t, bd, n_cand
+
+
+def scan2map_on_targets(system, streams, result, targets, card: str) -> dict:
+    """``loam.scan2map`` on the dense and the sorted-table target over the
+    streamed path's last N_FUSED_SCANS scans, from the recorded pose and from
+    the offset start: K4 once per gather, K2 once per other iteration, no
+    plain version; the poses beside the merged map's from the same start.
+    Returns {path name: launch counts}."""
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    dev = system.register.device
+    cap = int(result.extras["scan_capacity"])
+    n = len(streams.scan_stamps)
+    idx = list(range(max(1, n - N_FUSED_SCANS), n))
+    rows, _ = prep_scans(system, streams, idx, cap)
+    rows_d = torch.from_numpy(rows).to(dev)
+    merged = system.map_manager.get_target()
+    cases = []
+    for k, j in enumerate(idx):
+        src = streamed.upload_cloud(rows_d[k])
+        pose = torch.tensor(result.poses[j].astype(np.float32), device=dev)
+        for start in (pose, offset_pose(pose)):
+            cases.append((src, start, loam.scan2map(src, merged, start)))
+    out = {}
+    for kind, vm in targets.items():
+        name = f"scan2map_{kind}"
+        lk.reset_counts()
+        t0 = time.perf_counter()
+        res = [loam.scan2map(src, vm, start) for src, start, _ in cases]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = torch.stack([torch.stack([
+            r.iters, r.n_gathers, r.converged.to(torch.int32)])
+            for r in res]).cpu().numpy()
+        gathers = int(counts[:, 1].sum())
+        others = int((counts[:, 0] - counts[:, 1]).sum())
+        t_gap = r_gap = 0.0
+        for r, (_, _, ref) in zip(res, cases):
+            p, q = r.pose.cpu().numpy(), ref.pose.cpu().numpy()
+            if not np.isfinite(p).all():
+                fail(f"{name}: non-finite pose")
+            t_gap = max(t_gap, float(np.linalg.norm(
+                p[:3, 3].astype(np.float64) - q[:3, 3])))
+            r_gap = max(r_gap, _rot_angle(p[:3, :3], q[:3, :3]))
+        plain = (lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
+                 + lk.K3_PLAIN_CUDA_CALLS + lk.K4_PLAIN_CUDA_CALLS)
+        print(f"{name}: {len(res)} registrations of scans {idx[0]}-{idx[-1]} "
+              f"in {wall:.2f} s ({1e3 * wall / len(res):.2f} ms each, one "
+              f"host read per iteration); gathers {gathers}, other iterations "
+              f"{others}, converged {int(counts[:, 2].sum())}; K4 launches "
+              f"{lk.K4_LAUNCHES}, K2 launches {lk.K2_LAUNCHES}, K1 / K3 "
+              f"launches {lk.K1_LAUNCHES} / {lk.K3_LAUNCHES}, plain CUDA calls "
+              f"{plain}; largest gap to the merged map's pose {t_gap:.3e} m / "
+              f"{r_gap:.3e} rad (limits {TARGET_GAP_T_MAX} / "
+              f"{TARGET_GAP_R_MAX}) ({card})")
+        if lk.K4_LAUNCHES != gathers or lk.K2_LAUNCHES != others \
+                or gathers < len(res) or others == 0:
+            fail(f"{name}: K4 launches {lk.K4_LAUNCHES} for {gathers} gathers,"
+                 f" K2 launches {lk.K2_LAUNCHES} for {others} other iterations")
+        if plain or lk.K1_LAUNCHES or lk.K3_LAUNCHES:
+            fail(f"{name}: a plain version or another kernel ran on this path")
+        if counts[:, 2].sum() < 0.9 * len(res):
+            fail(f"{name}: only {int(counts[:, 2].sum())} of {len(res)} "
+                 "registrations converged")
+        if t_gap > TARGET_GAP_T_MAX or r_gap > TARGET_GAP_R_MAX:
+            fail(f"{name}: pose {t_gap:.3e} m / {r_gap:.3e} rad from the "
+                 "merged map's")
+        out[name] = {"k1": 0, "k2": lk.K2_LAUNCHES, "k3": 0,
+                     "k4": lk.K4_LAUNCHES, "k1_standalone": 0,
+                     "k2_standalone": lk.K2_LAUNCHES, "plain": plain,
+                     "stepwise": 0, "registrations": len(res)}
+    return out
+
+
+def k4_phases(system, streams, result, card: str):
+    """Phases 12 and 13 on the streamed full path's inputs. Returns (K4's
+    kernels-line entry without its launches, {path name: launch counts})."""
+    from simpleslam_tpu_torch.ops import geometry as geo
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    phase("K4 against its plain version on the streamed full inputs")
+    dev = system.register.device
+    cap = int(result.extras["scan_capacity"])
+    n = len(streams.scan_stamps)
+    # a rebuild that still waited for its swap becomes the target, so the
+    # merged map and the two maps built here hold the same submap
+    system.map_manager.commit_pending_target()
+    targets = other_targets(system)
+    rows, cnts = prep_scans(system, streams, [n - 1], cap)
+    src = streamed.upload_cloud(torch.from_numpy(rows).to(dev)[0])
+    pose = torch.tensor(result.poses[n - 1].astype(np.float32), device=dev)
+    sqrt_r = loam.source_sqrt_range(src)
+    p_on = geo.transform_points(pose, src.xyz)
+    p_off = geo.transform_points(offset_pose(pose), src.xyz)
+    print(f"scan {n - 1} at scan capacity {cap} ({int(cnts[0])} valid)")
+    held = {kind: hold_k4(f"{kind} target", vm, src, sqrt_r, p_on, p_off, card)
+            for kind, vm in targets.items()}
+    phase("scan2map on the dense and the sorted-table target")
+    by_path = scan2map_on_targets(system, streams, result, targets, card)
+    err, t, bd, n_cand = held["dense"]
+    err_t, t_t, bd_t, n_cand_t = held["table"]
+    entry = {
+        "name": "fit_and_linearize_candidates", "route": "cuda",
+        "source": "simpleslam_tpu_torch/csrc/loam_kernels.cu",
+        "replaces": "simpleslam_tpu/ops/loam_pallas.py:208",
+        "max_abs_err": max(err, err_t),
+        "ms": t["k4"], "plain_ms": t["k4_plain"], "bound_ms": bd[0],
+        "bound_by": bd[1],
+        # no single PyTorch call does a 5-round selection, a 3x3 eigensolve
+        # and a gated 28-term reduction
+        "library_ms": None,
+        "timed_on": f"corner gather of the dense map, Q={cap}, C={n_cand}",
+        "device_ms": t["k4_dev"], "device_ms_how": t["k4_dev_how"],
+        "sorted_table": {"candidates": n_cand_t, "ms": t_t["k4"],
+                         "device_ms": t_t["k4_dev"],
+                         "device_ms_how": t_t["k4_dev_how"],
+                         "plain_ms": t_t["k4_plain"], "bound_ms": bd_t[0],
+                         "bound_by": bd_t[1]},
+        "gather_ms": {"dense": t["gather"], "table": t_t["gather"]},
+    }
+    return entry, by_path
+
+
+# -- the recorded-data path ---------------------------------------------------
+KITTI_SCANS = 60
+LZ4_SCANS = 5
+REPLAY_APE_MAX = 0.1      # metres, the loop-closure test's ATE bound
+# A replay from a file against the in-memory run of the same config at the
+# CLI's batch size: the file carries the same f32 scans, and stamps that
+# round-trip through ROS sec/nsec (bag) or six decimals (KITTI), so every
+# scan's pose agrees within the bound of tests/test_torch_recorded.py and the
+# keyframes are the same scans. ``tum.txt`` rounds to a millimetre per axis,
+# so two such files may sit one more step apart on each axis.
+REPLAY_POSE_TOL = 1e-3    # metres, per scan
+REPLAY_TUM_TOL = REPLAY_POSE_TOL + 3 ** 0.5 * 1e-3   # metres, per keyframe
+
+
+def replay_cli(name: str, argv, n_scans: int, gt_tum: str, out_dir: str,
+               vis_dir: str, card: str):
+    """One ``app.main`` replay of recorded data; checks its artifacts, its
+    kernel counts and the APE of the keyframe trajectory it wrote. Returns
+    the launch counts, the APE and the ``run_streamed`` result that
+    ``app.main`` got (observed on its way through, as GnRecorder does)."""
+    from simpleslam_tpu_torch.eval import evaluate
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import app, streamed
+
+    seen = []
+    orig = streamed.run_streamed
+
+    def observed(*args, **kwargs):
+        seen.append(orig(*args, **kwargs))
+        return seen[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_counts()
+    t0 = time.perf_counter()
+    streamed.run_streamed = observed
+    try:
+        with GnRecorder() as rec:
+            rc = app.main(argv)
+            torch.cuda.synchronize()
+    finally:
+        streamed.run_streamed = orig
+    wall = time.perf_counter() - t0
+    if len(seen) != 1:
+        fail(f"{name}: app.main called run_streamed {len(seen)} times")
+    launches = launch_counts(rec)
+    if rc != 0:
+        fail(f"{name}: app.main returned {rc}")
+    for f in ("tum.txt", "0.pcd", "fg.g2o"):
+        if not os.path.isfile(os.path.join(out_dir, f)):
+            fail(f"{name}: {f} was not written to {out_dir}")
+    plys = [f for f in os.listdir(vis_dir) if f.endswith(".ply")]
+    if not plys:
+        fail(f"{name}: the visualizer wrote no PLY file")
+    ape, rpe = evaluate(gt_tum, os.path.join(out_dir, "tum.txt"), delta=1,
+                        align=False)
+    print(f"{name}: app.main (prewarm, replay, shutdown) {wall:.2f} s for "
+          f"{n_scans} scans; {len(plys)} PLY files; keyframe APE {ape.row()}; "
+          f"RPE(delta=1) rmse {rpe.rmse:.4f} m; {describe_launches(launches)} "
+          f"({card})")
+    if not (launches["k3"] == launches["registrations"] == n_scans - 1):
+        fail(f"{name}: K3 launches {launches['k3']}, registrations "
+             f"{launches['registrations']}, scans {n_scans}")
+    if launches["plain"] or launches["stepwise"] or launches["k4"]:
+        fail(f"{name}: a plain version or K4 ran on this path: {launches}")
+    if not ape.rmse < REPLAY_APE_MAX:
+        fail(f"{name}: keyframe APE {ape.rmse} >= {REPLAY_APE_MAX} m")
+    return launches, ape, seen[0]
+
+
+def hold_replay(name: str, result, out_dir: str, streams, root: str,
+                card: str) -> None:
+    """The replay's per-scan poses and the keyframe file it wrote against an
+    in-memory run of ``streams`` on the card, same config, same batch size
+    (``run_streamed``'s default, which ``app.main`` uses)."""
+    from simpleslam_tpu_torch.utils import fileio
+
+    _, _, mem = streamed_run(f"in-memory full run beside the {name}",
+                             BENCH_FULL, streams, card, prewarm=True,
+                             sync_every=16, probe_scans=0)
+    if result.poses.shape != mem.poses.shape:
+        fail(f"{name}: {len(result.poses)} poses, in memory {len(mem.poses)}")
+    gap = np.linalg.norm(result.poses[:, :3, 3].astype(np.float64)
+                         - mem.poses[:, :3, 3], axis=1)
+    mem_tum = os.path.join(root, f"in_memory_{name.split()[0]}_tum.txt")
+    fileio.write_tum(mem_tum, mem.extras["kf_stamps"], mem.extras["kf_poses"])
+    st_a, po_a = fileio.load_tum(os.path.join(out_dir, "tum.txt"))
+    st_b, po_b = fileio.load_tum(mem_tum)
+    same_kf = len(st_a) == len(st_b) and np.array_equal(st_a, st_b)
+    kf_gap = (float(np.linalg.norm(po_a[:, :3, 3] - po_b[:, :3, 3],
+                                   axis=1).max()) if same_kf else float("nan"))
+    print(f"{name} against the in-memory run of the same config in 16-scan "
+          f"batches: largest per-scan pose gap {gap.max():.3e} m over "
+          f"{len(gap)} scans (limit {REPLAY_POSE_TOL}); keyframes "
+          f"{len(st_a)} vs {len(st_b)}, same stamps {same_kf}, largest gap "
+          f"between the two tum.txt files {kf_gap:.3e} m (limit "
+          f"{REPLAY_TUM_TOL:.3e}, both rounded to a millimetre) ({card})")
+    if not gap.max() <= REPLAY_POSE_TOL:
+        fail(f"{name}: a scan's pose is {gap.max()} m from the in-memory run's")
+    if not same_kf or result.keyframe_count != mem.keyframe_count:
+        fail(f"{name}: keyframes differ from the in-memory run's")
+    if not kf_gap <= REPLAY_TUM_TOL:
+        fail(f"{name}: a keyframe in tum.txt is {kf_gap} m from the in-memory "
+             "run's")
+
+
+def recorded_data(streams, full_result, card: str) -> dict:
+    """Phase 14: the bench sequence as a bag and as a KITTI directory,
+    through ``app.main`` in the bench's full config with the visualizer on."""
+    from simpleslam_tpu_torch.eval import evaluate
+    from simpleslam_tpu_torch.pipeline import bagio
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.utils import fileio
+
+    phase("recorded data: bag and KITTI replay (bench full config, vis on)")
+    topics = ("/lidar_points", "/wheel_odom", "/imu")
+    n = len(streams.scan_stamps)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        bag = os.path.join(root, "bench.bag")
+        t0 = time.perf_counter()
+        bagio.bag_from_streams(streams, bag)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = bagio.streams_from_bag(bag, *topics)
+        t_read = time.perf_counter() - t0
+        print(f"bag: {n} scans, {len(streams.wheel_stamps)} wheel and "
+              f"{len(streams.imu_stamps)} IMU messages, "
+              f"{os.path.getsize(bag) / 1e6:.1f} MB with uncompressed chunks; "
+              f"written in {t_write:.2f} s, read back in {t_read:.2f} s (host)")
+        if len(back.scans) != n or not all(
+                np.array_equal(a, np.asarray(b, np.float32))
+                for a, b in zip(back.scans, streams.scans)):
+            fail("bag: the scans read back differ from those written")
+        if np.abs(back.scan_stamps - streams.scan_stamps).max() > 1e-9:
+            fail("bag: scan stamps moved by more than a nanosecond")
+        head = head_of(sim, streams, LZ4_SCANS)
+        lz4 = os.path.join(root, "head_lz4.bag")
+        t0 = time.perf_counter()
+        bagio.bag_from_streams(head, lz4, compression="lz4")
+        t_lz4 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lz4_back = bagio.streams_from_bag(lz4, *topics)
+        print(f"bag: {LZ4_SCANS} scans with lz4 chunks (the in-module codec), "
+              f"{os.path.getsize(lz4) / 1e6:.2f} MB, written in {t_lz4:.2f} s, "
+              f"read back in {time.perf_counter() - t0:.2f} s (host)")
+        if not all(np.array_equal(a, np.asarray(b, np.float32))
+                   for a, b in zip(lz4_back.scans, head.scans)):
+            fail("lz4 bag: the scans read back differ from those written")
+
+        gt_tum = os.path.join(root, "gt_tum.txt")
+        fileio.write_tum(gt_tum, np.asarray(streams.scan_stamps),
+                         streams.gt_poses)
+        mem_tum = os.path.join(root, "in_memory_tum.txt")
+        fileio.write_tum(mem_tum, full_result.extras["kf_stamps"],
+                         full_result.extras["kf_poses"])
+        ape_mem, _ = evaluate(gt_tum, mem_tum, delta=1, align=False)
+        print(f"in-memory full run of this call: keyframe APE {ape_mem.row()}")
+
+        def cfg_file(tag):
+            vis_dir = os.path.join(root, f"vis_{tag}")
+            path = os.path.join(root, f"cfg_{tag}.json")
+            with open(path, "w") as f:
+                json.dump(dict(BENCH_FULL, torch={"device": "cuda"},
+                               vis={"enable": True, "out_dir": vis_dir}), f)
+            return path, vis_dir, os.path.join(root, f"map_{tag}")
+
+        cfg, vis_dir, out_dir = cfg_file("bag")
+        out["bag_replay"], ape, res = replay_cli(
+            "bag replay", ["--bag", bag, "--streamed", "--config", cfg,
+                           "--out", out_dir], n, gt_tum, out_dir, vis_dir, card)
+        print(f"bag replay: keyframe APE rmse {ape.rmse:.4f} m beside "
+              f"{ape_mem.rmse:.4f} m for the bench's in-memory run in "
+              f"{BENCH_SYNC_EVERY}-scan batches")
+        hold_replay("bag replay", res, out_dir, streams, root, card)
+
+        vdir = os.path.join(root, "kitti", "00", "velodyne")
+        os.makedirs(vdir)
+        t0 = time.perf_counter()
+        for i in range(KITTI_SCANS):
+            frame = np.zeros((len(streams.scans[i]), 4), np.float32)
+            frame[:, :3] = streams.scans[i]
+            frame.tofile(os.path.join(vdir, f"{i:06d}.bin"))
+        with open(os.path.join(os.path.dirname(vdir), "times.txt"), "w") as f:
+            f.writelines(f"{t:.6f}\n" for t in streams.scan_stamps[:KITTI_SCANS])
+        print(f"KITTI directory: {KITTI_SCANS} frames written in "
+              f"{time.perf_counter() - t0:.2f} s (host)")
+        cfg, vis_dir, out_dir = cfg_file("kitti")
+        out["kitti_replay"], _, res = replay_cli(
+            "KITTI replay", ["--kitti", vdir, "--scans", str(KITTI_SCANS),
+                             "--streamed", "--config", cfg, "--out", out_dir],
+            KITTI_SCANS, gt_tum, out_dir, vis_dir, card)
+        hold_replay("KITTI replay", res, out_dir,
+                    head_of(sim, streams, KITTI_SCANS), root, card)
+    return out
+
+
+def device_probe_run(streams, card: str) -> None:
+    """Phase 15: the lo config with ``device_probe=True`` and the batch's
+    roofline shares."""
+    from simpleslam_tpu_torch.ops import roofline
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+    phase("device_probe (bench lo config) and roofline")
+    system = app.SlamSystem(dict(BENCH_LO, torch={"device": "cuda"}))
+    result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY,
+                          device_probe=True)
+    t = result.timers
+    nb = result.extras["n_batches"]
+    for key in ("device_exec", "fetch_wait", "fetch_xfer"):
+        if t.count[key] != nb or not t.total[key] > 0:
+            fail(f"device_probe: timer {key} booked {t.count[key]} times for "
+                 f"{nb} batches")
+    if t.count["fetch"]:
+        fail("device_probe: the fused fetch was booked too")
+    ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
+    n = len(streams.scan_stamps)
+    print(f"device_probe: {n} scans in {result.wall_time:.2f} s = "
+          f"{n / result.wall_time:.2f} scans/s with the probe's blocking; "
+          f"per batch of {BENCH_SYNC_EVERY}: device_exec "
+          f"{1e3 * t.mean('device_exec'):.3f} ms (series "
+          f"{[round(1e3 * v, 2) for v in t.series['device_exec']]}), "
+          f"fetch_wait {1e3 * t.mean('fetch_wait'):.4f} ms, fetch_xfer "
+          f"{1e3 * t.mean('fetch_xfer'):.4f} ms; ATE {ate:.4f} m ({card})")
+    if not ate < STREAMED_ATE_MAX:
+        fail(f"device_probe: ATE {ate}")
+    slab = int(system.register.tpu_cfg.get("loam_slab_size", 24))
+    cost = roofline.loam_batch_cost(
+        n_queries=result.extras["scan_capacity"], slab_rows=1,
+        lane_width=8 * slab * 3, slab_pts=slab, n_scans=BENCH_SYNC_EVERY,
+        mean_iters=result.extras["gn_iters_mean"],
+        mean_gathers=result.extras["gn_gathers_mean"])
+    # full batches only: the last one holds fewer scans
+    full = t.series["device_exec"][: (n - 1) // BENCH_SYNC_EVERY] or \
+        t.series["device_exec"]
+    util = roofline.utilization(cost, statistics.median(full))
+    print(f"roofline of one {BENCH_SYNC_EVERY}-scan batch: "
+          f"{cost['flops'] / 1e9:.3f} GFLOP, {cost['hbm_bytes'] / 1e6:.2f} MB "
+          f"of row reads, against device_exec median "
+          f"{1e3 * statistics.median(full):.3f} ms: share of the f32 peak "
+          f"{util['mfu']}, of the HBM bandwidth {util['hbm_util']}, of the "
+          f"speed of light {util['sol_frac']} ({card}; peaks "
+          f"{roofline.H100_SXM_F32_NON_TENSOR_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          f"{roofline.H100_SXM_HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    if not all(0 < util[k] <= 1 for k in ("mfu", "hbm_util", "sol_frac")):
+        fail(f"roofline: a share outside (0, 1]: {util}")
+
+
+def memcheck_run(card: str) -> None:
+    """Phase 16: the steady-state check of the streamed executor."""
+    from simpleslam_tpu_torch import memcheck
+
+    phase("memcheck (4 segments of 48 scans)")
+    out = memcheck.run_memcheck(4, 48)
+    print(f"memcheck ({card}): {json.dumps(out)}")
+    if not out["ok"] or out["device"].split(":")[0] != "cuda":
+        fail("memcheck: a steady-state check failed")
+
+
+NEW_PATHS = ("lio", "ndt", "vgicp", "threaded", "k4", "recorded", "probe",
+             "memcheck")
+
+
+def new_paths(which, streams, card: str, full=None):
+    """Phases 8-16, those named in ``which``: ({path name: launch counts},
+    K4's kernels-line entry or None). ``full`` is the streamed full run's
+    (system, result), made here when a phase needs it and none is given."""
     from simpleslam_tpu_torch.pipeline import simulate as sim
 
     head = head_of(sim, streams, REGISTER_SCANS)
-    out = {}
+    out, k4_entry = {}, None
+    if full is None and {"k4", "recorded"} & set(which):
+        _, full_sys, full_res = streamed_run(
+            "streamed full (bench full config)", BENCH_FULL, streams, card,
+            prewarm=True, probe_scans=0)
+        full = (full_sys, full_res)
+    if "k4" in which:
+        k4_entry, paths = k4_phases(full[0], streams, full[1], card)
+        out.update(paths)
+    if "recorded" in which:
+        full_res = full[1]
+        full = None            # the system's device memory goes before a replay
+        torch.cuda.empty_cache()
+        out.update(recorded_data(streams, full_res, card))
+    full = None
+    torch.cuda.empty_cache()
+    if "probe" in which:
+        device_probe_run(streams, card)
+    if "memcheck" in which:
+        memcheck_run(card)
     if "lio" in which:
         out["streamed_lio"] = lio_run(streams, card)
     for kind in ("ndt", "vgicp"):
@@ -1111,7 +1724,7 @@ def new_paths(which, streams, card: str) -> dict:
             out[f"streamed_{kind}"] = register_runs(kind, head, card)
     if "threaded" in which:
         out["threaded"] = threaded_run(head, card)
-    return out
+    return out, k4_entry
 
 
 def main() -> int:
@@ -1167,10 +1780,11 @@ def main() -> int:
     main_errs, main_t, main_bd = main_path_kernels(full_sys, streams, full_res,
                                                    card, tally)
     tally.check()
+    new, k4_entry = new_paths(NEW_PATHS, streams, card, (full_sys, full_res))
     del full_sys, be, full_res
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
-    by_path.update(new_paths(NEW_PATHS, streams, card))
+    by_path.update(new)
 
     # launches, errors, times and bounds of the main path (streamed full);
     # the offline inputs' errors count as well. K3 is the kernel the paths
@@ -1190,9 +1804,20 @@ def main() -> int:
             k["launches_are"] = "runs of this kernel's body as a phase of gn_loop_fused"
             k["standalone_launches_by_path"] = {
                 p: c[key + "_standalone"] for p, c in by_path.items()}
-    kern[2]["device_ms"] = main_t.get("k3_dev")
+    kern[2]["device_ms"] = main_t["k3_dev"]
+    kern[2]["device_ms_how"] = main_t["k3_dev_how"]
+    kern[2]["device_ms_from_offset_start"] = main_t["k3_off_dev"]
+    kern[2]["device_ms_from_offset_start_how"] = main_t["k3_off_dev_how"]
     kern[2]["grid_barrier_ms"] = main_t["barrier"]
     kern[2]["max_abs_err_is"] = "pose translation against gn_loop_stepwise, metres"
+    # K4's paths are the scan2map runs on the dense and the sorted-table
+    # target; no other path launches it
+    k4_entry["launches"] = sum(c["k4"] for p, c in by_path.items()
+                               if p.startswith("scan2map_"))
+    k4_entry["launches_by_path"] = {p: c["k4"] for p, c in by_path.items()}
+    if k4_entry["launches"] == 0:
+        fail("K4 was launched no time on its paths")
+    kern.append(k4_entry)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

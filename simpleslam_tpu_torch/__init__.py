@@ -7,9 +7,13 @@ layout and names so each counterpart is easy to find:
   utils/     config, logging, concurrency, timing, file IO
   ops/       device math on tensors; ``loam_kernels`` holds the hand-written
              CUDA kernels (sources in ``csrc/``, built with nvcc at first use)
-  models/    frontend, registration, map manager, lidar odometry
-  pipeline/  offline replay harness and the sensor simulator
-  native/    ctypes loader for the shared C++ host helpers
+  models/    frontend, registration, map manager, lidar odometry, EKF proxy,
+             pose-graph backend, loop closure
+  pipeline/  offline, streamed and threaded replay, the sensor simulator,
+             recorded input (ROS1 bags, KITTI), the visualizer
+  eval/      APE / RPE between TUM trajectories, GPS ground truth
+  native/    ctypes loader for the C++ host helpers
+  memcheck   steady-state check of a long streamed run
 
 It never imports jax or ``simpleslam_tpu``. Every tensor lives on an explicit
 device (config key ``torch.device``); nothing switches device on its own.

@@ -43,6 +43,17 @@
 //      partials alternate between two buffers so a fast block cannot
 //      overwrite what a slow one still reads.
 //
+// K4 loam_fit_and_linearize_candidates: the TPU kernel in its own form,
+//    candidates in, normal equations out, for the targets whose gather stays
+//    in torch (the dense map's corner gather, the sorted table's 27-cell key
+//    search). One warp per query reads the query's (C, 3) f32 candidates and
+//    (C,) validity flags straight from device memory, once, into registers
+//    (C <= 256), and runs the same selection, plane fit, gates and J row as
+//    K1 through the same device functions; it writes the plane set for K2.
+//    Bound: the candidate stream (bytes): the C flags of every valid query,
+//    one byte each, and 12 bytes of coordinates for every set flag; a
+//    masked-out query's flags are all false and it needs no candidate.
+//
 // Arithmetic follows the plain PyTorch versions in ops/loam_kernels.py and
 // ops/loam.py op for op. The library is built with -fmad=false so no
 // multiply-add is contracted behind the source's back; the one fused
@@ -217,24 +228,52 @@ __device__ __forceinline__ const int16_t* merged_row(
     return g.rows + flat * static_cast<int64_t>(g.n_cand) * 3;
 }
 
-// 5-NN selection, plane fit and gates of one query against its staged row
-// (shared memory), by one warp; every lane returns the same plane.
-template <int kSlots>
-__device__ Plane select_and_fit_n(const int16_t* srow, const MapGeom& g,
-                                  bool valid, float px, float py, float pz,
-                                  int lane) {
-    const int n_cand = g.n_cand;
-    const float scale = g.scale, cx0 = g.cx0, cy0 = g.cy0, cz0 = g.cz0;
+// Where a query's candidates come from: get(c, x, y, z) gives candidate c in
+// f32 metres, or false where it is padding.
+//
+// A staged int16 merged row (shared memory), dequantized on the way.
+struct QuantRow {
+    const int16_t* srow;
+    float scale, cx0, cy0, cz0;
+    __device__ __forceinline__ bool get(int c, float& x, float& y,
+                                        float& z) const {
+        if (srow[3 * c] == kPadQ) return false;
+        x = dequant(srow[3 * c], scale, cx0);
+        y = dequant(srow[3 * c + 1], scale, cy0);
+        z = dequant(srow[3 * c + 2], scale, cz0);
+        return true;
+    }
+};
+
+// A query's gathered (C, 3) f32 candidates and (C,) 0/1 flags in device
+// memory; neighbouring lanes read neighbouring candidates.
+struct FloatCand {
+    const float* cand;
+    const uint8_t* ok;
+    __device__ __forceinline__ bool get(int c, float& x, float& y,
+                                        float& z) const {
+        if (!__ldg(ok + c)) return false;
+        x = __ldg(cand + 3 * c);
+        y = __ldg(cand + 3 * c + 1);
+        z = __ldg(cand + 3 * c + 2);
+        return true;
+    }
+};
+
+// 5-NN selection, plane fit and gates of one query against its n_cand
+// candidates, by one warp; every lane returns the same plane.
+template <int kSlots, class Cand>
+__device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
+                                  float px, float py, float pz, int lane) {
     // squared distances of this lane's candidates c = lane + 32 j
     float d2[kSlots];
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
         const int c = lane + 32 * j;
         d2[j] = CUDART_INF_F;
-        if (c < n_cand && srow[3 * c] != kPadQ) {
-            const float dx = dequant(srow[3 * c], scale, cx0) - px;
-            const float dy = dequant(srow[3 * c + 1], scale, cy0) - py;
-            const float dz = dequant(srow[3 * c + 2], scale, cz0) - pz;
+        float cx, cy, cz;
+        if (c < n_cand && cd.get(c, cx, cy, cz)) {
+            const float dx = cx - px, dy = cy - py, dz = cz - pz;
             d2[j] = dx * dx + dy * dy + dz * dz;
         }
     }
@@ -290,10 +329,7 @@ __device__ Plane select_and_fit_n(const int16_t* srow, const MapGeom& g,
     for (int k = 0; k < kPlanePts; ++k) {
         x[k] = y[k] = z[k] = 0.0f;
         if (sel[k] >= 0) {
-            const int c = sel[k];
-            x[k] = dequant(srow[3 * c], scale, cx0);
-            y[k] = dequant(srow[3 * c + 1], scale, cy0);
-            z[k] = dequant(srow[3 * c + 2], scale, cz0);
+            cd.get(sel[k], x[k], y[k], z[k]);   // a selected one is no padding
             sx += x[k]; sy += y[k]; sz += z[k];
         }
     }
@@ -326,13 +362,23 @@ __device__ Plane select_and_fit_n(const int16_t* srow, const MapGeom& g,
 }
 
 // Each lane owns candidates lane, lane + 32, ...: 6 of them at the usual 192
-// candidates per row (M = 24), 8 at the most (kMaxCand).
+// candidates per query (8 voxels x 24), 8 at the most (kMaxCand).
+template <class Cand>
+__device__ __forceinline__ Plane select_and_fit_any(
+        const Cand& cd, int n_cand, bool valid, float px, float py, float pz,
+        int lane) {
+    if (n_cand <= 6 * 32)
+        return select_and_fit_n<6>(cd, n_cand, valid, px, py, pz, lane);
+    return select_and_fit_n<kCandPerLane>(cd, n_cand, valid, px, py, pz,
+                                          lane);
+}
+
+// The selection against a staged merged row.
 __device__ __forceinline__ Plane select_and_fit(
         const int16_t* srow, const MapGeom& g, bool valid, float px, float py,
         float pz, int lane) {
-    if (g.n_cand <= 6 * 32)
-        return select_and_fit_n<6>(srow, g, valid, px, py, pz, lane);
-    return select_and_fit_n<kCandPerLane>(srow, g, valid, px, py, pz, lane);
+    const QuantRow cd = {srow, g.scale, g.cx0, g.cy0, g.cz0};
+    return select_and_fit_any(cd, g.n_cand, valid, px, py, pz, lane);
 }
 
 // The block's sums of every thread's acc[kNSums]: a fixed-order tree over
@@ -401,6 +447,47 @@ fit_and_linearize_merged_kernel(
     if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
 }
 
+// K4: one warp per query on its gathered f32 candidates, laid out and
+// reduced like K1 (kK1QueriesPerWarp queries per warp in order, block
+// partials summed over warps in order).
+__global__ void __launch_bounds__(kK1Warps * 32)
+fit_and_linearize_candidates_kernel(
+        const float* __restrict__ cand, const uint8_t* __restrict__ cand_ok,
+        int n_cand, const float* __restrict__ p_map,
+        const float* __restrict__ sqrt_r, const uint8_t* __restrict__ mask,
+        int n_q, float* __restrict__ centroid, float* __restrict__ normal,
+        uint8_t* __restrict__ ok_out, float* __restrict__ partials) {
+    __shared__ float s_acc[kK1Warps][kNSums];
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+
+    float acc[kNSums];
+#pragma unroll
+    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
+
+    for (int it = 0; it < kK1QueriesPerWarp; ++it) {
+        const int qi = (blockIdx.x * kK1Warps + warp) * kK1QueriesPerWarp + it;
+        if (qi >= n_q) break;
+        const float px = p_map[3 * qi], py = p_map[3 * qi + 1],
+                    pz = p_map[3 * qi + 2];
+        const bool valid = mask[qi] != 0;
+        const size_t first = static_cast<size_t>(qi) * n_cand;
+        const FloatCand cd = {cand + 3 * first, cand_ok + first};
+        const Plane pl = select_and_fit_any(cd, n_cand, valid, px, py, pz,
+                                            lane);
+        if (lane == 0) {
+            centroid[3 * qi] = pl.cx; centroid[3 * qi + 1] = pl.cy;
+            centroid[3 * qi + 2] = pl.cz;
+            normal[3 * qi] = pl.nx; normal[3 * qi + 1] = pl.ny;
+            normal[3 * qi + 2] = pl.nz;
+            ok_out[qi] = pl.ok ? 1 : 0;
+            accumulate_row(pl, px, py, pz, sqrt_r[qi], acc);
+        }
+    }
+    const float t = block_sums<kK1Warps>(acc, s_acc);
+    if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
+}
+
 // K2: one thread per query against the frozen plane set.
 __global__ void __launch_bounds__(kK2Threads)
 plane_normal_equations_kernel(
@@ -444,7 +531,7 @@ __device__ __forceinline__ void expand_sum(int t, float s, float* jtj,
     }
 }
 
-// Second pass shared by K1 and K2: block partials summed in block order,
+// Second pass shared by K1, K2 and K4: block partials summed in block order,
 // then expanded to the symmetric 6x6 J^T J, J^T e and the int count.
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        int n_blocks, float* __restrict__ jtj,
@@ -809,6 +896,31 @@ int loam_fit_and_linearize_merged(
         static_cast<const uint8_t*>(mask), n_q, static_cast<float*>(centroid),
         static_cast<float*>(normal), static_cast<uint8_t*>(ok),
         static_cast<float*>(partials));
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    reduce_partials_kernel<<<1, 32, 0, st>>>(
+        static_cast<const float*>(partials), nb, static_cast<float*>(jtj),
+        static_cast<float*>(jte), static_cast<int32_t*>(n_valid));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K4: candidates (n_q, n_cand, 3) f32 and flags (n_q, n_cand) uint8, both
+// contiguous; outputs and partials (loam_k1_blocks(n_q) x 28) as for K1.
+int loam_fit_and_linearize_candidates(
+        const void* cand, const void* cand_ok, int n_cand, const void* p_map,
+        const void* sqrt_r, const void* mask, int n_q, void* centroid,
+        void* normal, void* ok, void* partials, void* jtj, void* jte,
+        void* n_valid, void* stream) {
+    if (n_cand < 1 || n_cand > kMaxCand)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int nb = loam_k1_blocks(n_q);
+    fit_and_linearize_candidates_kernel<<<nb, kK1Warps * 32, 0, st>>>(
+        static_cast<const float*>(cand), static_cast<const uint8_t*>(cand_ok),
+        n_cand, static_cast<const float*>(p_map),
+        static_cast<const float*>(sqrt_r), static_cast<const uint8_t*>(mask),
+        n_q, static_cast<float*>(centroid), static_cast<float*>(normal),
+        static_cast<uint8_t*>(ok), static_cast<float*>(partials));
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     reduce_partials_kernel<<<1, 32, 0, st>>>(

@@ -54,7 +54,7 @@ def _fractional_pose(step: np.ndarray, s: float) -> np.ndarray:
 
 class LidarOdometry:
     def __init__(self, frontend: Frontend, map_manager: MapManager,
-                 register=None):
+                 register=None, vis=None):
         cfg = Params.get_instance()
         self.lg = Logger.get_instance()
         self.frontend = frontend
@@ -63,6 +63,8 @@ class LidarOdometry:
         self.ds_capacity = int(cfg["tpu"]["ds_scan_capacity"])
         self.scan_capacity = int(cfg["tpu"]["scan_capacity"])
         self.register = register if register is not None else make_register()
+        self.vis = vis
+        self._vis_topic = cfg["vis"]["align"].strip("/")
 
         self.reloc = False
         self.reloc_pose = np.eye(4)
@@ -120,11 +122,12 @@ class LidarOdometry:
 
         # ---- scan2map + planar clamp (LidarOdometry.cpp:163-211), fused into
         # one device call (downsample + register + SixDof2Mobile) ------------
+        ds_scan = None
         if not mm.is_submap_empty():
             pc = pcops.from_numpy(scan_xyz, self.scan_capacity,
                                   self.register.device)
             target = mm.get_target()  # snapshot under the submap lock
-            init_pose, converged, _ = self.register.odometry_step(
+            init_pose, converged, ds_scan = self.register.odometry_step(
                 pc, target, init_pose, self.grid_size, self.ds_capacity)
             if not converged:
                 self.lg.warn("pcr not converge!!")
@@ -154,6 +157,12 @@ class LidarOdometry:
                 fe.set_init_odom2map()
                 self.lg.info("init odom2map!!")
             fe.odom2map.store(init_pose @ np.linalg.inv(local_odom.odom))
+
+        # vis publish of the aligned scan (LidarOdometry.cpp:226): a try-lock
+        # handoff that drops the frame when the vis worker is busy
+        if self.vis is not None and ds_scan is not None:
+            self.vis.publish_pc(self._vis_topic, pcops.to_numpy(ds_scan),
+                                init_pose)
         return init_pose
 
     def _select_keyframe(self, kf: KeyFrame) -> None:

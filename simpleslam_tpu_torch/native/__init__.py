@@ -51,6 +51,9 @@ def _build(out: str, src: Optional[str] = None,
     if r.returncode != 0:
         return "g++ failed: " + r.stderr.decode(errors="replace")[-2000:]
     os.replace(tmp, out)  # atomic: concurrent builders never see a partial file
+    from ..ops import _build as kernel_build
+
+    kernel_build.note_build()
     return ""
 
 
@@ -64,6 +67,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.pad_cloud.argtypes = [f32p, i64, i64, ctypes.c_float, f32p, u8p]
     lib.transform_concat.restype = i64
     lib.transform_concat.argtypes = [f32p, i64p, f32p, i64, f32p]
+    lib.voxel_downsample_centroid_pad.restype = i64
+    lib.voxel_downsample_centroid_pad.argtypes = [
+        f32p, i64, ctypes.c_float, i64, i64, ctypes.c_float, f32p]
+    lib.voxel_downsample_centroid_pad_batch.restype = None
+    lib.voxel_downsample_centroid_pad_batch.argtypes = [
+        f32p, i64p, i64, ctypes.c_float, i64, i64, ctypes.c_float, f32p,
+        i64p, i64]
     lib.voxel_downsample_sort_quant_batch.restype = None
     lib.voxel_downsample_sort_quant_batch.argtypes = [
         f32p, i64p, i64, ctypes.c_float, i64, i64, ctypes.c_float,
@@ -106,6 +116,11 @@ def _load() -> Optional[ctypes.CDLL]:
 def backend() -> str:
     """Which implementation the host helpers run: "cpp" or "numpy"."""
     return "cpp" if _load() is not None else "numpy"
+
+
+def available() -> bool:
+    """Whether the C++ host helpers are built and loaded."""
+    return _load() is not None
 
 
 def _f32c(a: np.ndarray) -> np.ndarray:
@@ -202,6 +217,66 @@ def _centroids_first_seen(xyz: np.ndarray, grid: float, capacity: int,
     return cents
 
 
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _flatten_scans(scans):
+    """A batch of clouds as one (sum n, 3) f32 array and their (B,) sizes."""
+    flat = [_f32c(np.asarray(s).reshape(-1, 3)) for s in scans]
+    concat = (np.concatenate(flat, axis=0) if flat
+              else np.zeros((0, 3), np.float32))
+    return concat, np.asarray([len(f) for f in flat], np.int64)
+
+
+def _omp_threads() -> int:
+    """OpenMP width of a batch call: one core stays free for the thread
+    that feeds the device."""
+    return max(1, (os.cpu_count() or 2) - 1)
+
+
+def voxel_downsample_centroid_pad(xyz: np.ndarray, grid: float, capacity: int,
+                                  pad_coord: float, max_pts: int = 20):
+    """Centroid-per-voxel downsample into the padded layout: the centroid of
+    each voxel's first ``max_pts`` finite points, voxels in first-seen order,
+    stride-subsampled past ``capacity``, ``pad_coord`` beyond the valid
+    count. Returns (padded (capacity, 3) f32, valid count)."""
+    xyz = _f32c(xyz.reshape(-1, 3))
+    lib = _load()
+    out = np.empty((capacity, 3), np.float32)
+    if lib is None:
+        cents = _centroids_first_seen(xyz, grid, capacity, max_pts)
+        out[: len(cents)] = cents
+        out[len(cents):] = pad_coord
+        return out, len(cents)
+    m = lib.voxel_downsample_centroid_pad(
+        _fp(xyz), len(xyz), ctypes.c_float(grid), max_pts, capacity,
+        ctypes.c_float(pad_coord), _fp(out))
+    return out, int(m)
+
+
+def voxel_downsample_centroid_pad_batch(scans, grid: float, capacity: int,
+                                        pad_coord: float, max_pts: int = 20):
+    """``voxel_downsample_centroid_pad`` of a batch of independent scans in
+    one GIL-released call, parallel over scans. Returns ((B, capacity, 3)
+    f32, (B,) int64 valid counts)."""
+    b = len(scans)
+    out = np.empty((b, capacity, 3), np.float32)
+    cnts = np.empty(b, np.int64)
+    lib = _load()
+    if lib is None:
+        for i, s in enumerate(scans):
+            out[i], cnts[i] = voxel_downsample_centroid_pad(
+                np.asarray(s), grid, capacity, pad_coord, max_pts)
+        return out, cnts
+    concat, counts = _flatten_scans(scans)
+    lib.voxel_downsample_centroid_pad_batch(
+        _fp(concat), _i64p(counts), b, ctypes.c_float(grid), max_pts,
+        capacity, ctypes.c_float(pad_coord), _fp(out), _i64p(cnts),
+        _omp_threads())
+    return out, cnts
+
+
 def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
                                       sort_grid: float, quant_scale: float,
                                       max_pts: int = 20):
@@ -213,15 +288,16 @@ def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
     Returns ((B, capacity, 3) int16, (B,) int64 valid counts).
     """
     b = len(scans)
-    flat = [_f32c(np.asarray(s).reshape(-1, 3)) for s in scans]
     lib = _load()
     out = np.full((b, capacity, 3), np.int16(32767), np.int16)
     counts_out = np.zeros(b, np.int64)
     if lib is None:
         inv_s = np.float32(1.0) / np.float32(sort_grid) if sort_grid > 0 else 0
         qinv = np.float32(1.0) / np.float32(quant_scale)
-        for k, xyz in enumerate(flat):
-            pts = _centroids_first_seen(xyz, grid, capacity, max_pts)
+        for k, scan in enumerate(scans):
+            pts = _centroids_first_seen(
+                _f32c(np.asarray(scan).reshape(-1, 3)), grid, capacity,
+                max_pts)
             if sort_grid > 0 and len(pts) > 1:
                 v = np.floor(pts * inv_s).astype(np.int64) + (1 << 20)
                 key = (v[:, 0] << 42) | (v[:, 1] << 21) | v[:, 2]
@@ -231,16 +307,12 @@ def voxel_downsample_sort_quant_batch(scans, grid: float, capacity: int,
             out[k, : len(q)] = q.astype(np.int16)
             counts_out[k] = len(q)
         return out, counts_out
-    concat = (np.concatenate(flat, axis=0) if flat
-              else np.zeros((0, 3), np.float32))
-    counts = np.asarray([len(f) for f in flat], np.int64)
-    threads = max(1, (os.cpu_count() or 2) - 1)
+    concat, counts = _flatten_scans(scans)
     lib.voxel_downsample_sort_quant_batch(
-        _fp(concat), counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), b,
-        ctypes.c_float(grid), max_pts, capacity, ctypes.c_float(sort_grid),
-        ctypes.c_float(quant_scale),
+        _fp(concat), _i64p(counts), b, ctypes.c_float(grid), max_pts,
+        capacity, ctypes.c_float(sort_grid), ctypes.c_float(quant_scale),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-        counts_out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), threads)
+        _i64p(counts_out), _omp_threads())
     return out, counts_out
 
 

@@ -32,9 +32,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_LOG = ""       # nvcc's output from this process's build ("" if loaded)
 BUILD_SECONDS = 0.0  # wall time of that build (0.0 if loaded)
+BUILDS = 0           # compiler runs of this process: this library and the
+                     # host helpers of ``native`` (a steady state adds none)
+
+
+def note_build() -> None:
+    """Count one compiler run (nvcc here, g++ in ``native``)."""
+    global BUILDS
+    with _count_lock:
+        BUILDS += 1
+
 
 
 def _nvcc() -> str:
@@ -60,6 +71,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp,
         vp, vp, vp]
     lib.loam_fit_and_linearize_merged.restype = ci
+    lib.loam_fit_and_linearize_candidates.argtypes = [
+        vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.loam_fit_and_linearize_candidates.restype = ci
     lib.loam_plane_normal_equations.argtypes = [
         vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
     lib.loam_plane_normal_equations.restype = ci
@@ -103,6 +117,7 @@ def library() -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc failed ({r.returncode}): {' '.join(cmd)}\n{BUILD_LOG}")
             os.replace(tmp, path)
+            note_build()
         lib = ctypes.CDLL(path)
         _bind(lib)
         _lib = lib

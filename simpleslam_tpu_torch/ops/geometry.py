@@ -160,6 +160,10 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
+def pose_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def pose_inverse(T: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
@@ -273,6 +277,10 @@ def rot_to_ypr(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([yaw, pitch, roll], dim=-1)
 
 
+def quat_to_ypr(q: torch.Tensor) -> torch.Tensor:
+    return rot_to_ypr(quat_to_rot(q))
+
+
 def ypr_to_rot(ypr: torch.Tensor) -> torch.Tensor:
     """(yaw, pitch, roll) -> R = Rz(yaw) Ry(pitch) Rx(roll)
     (trans.hpp:45-50)."""
@@ -290,6 +298,10 @@ def ypr_to_rot(ypr: torch.Tensor) -> torch.Tensor:
         ],
         dim=-2,
     )
+
+
+def ypr_to_quat(ypr: torch.Tensor) -> torch.Tensor:
+    return rot_to_quat(ypr_to_rot(ypr))
 
 
 def correct_angles(a: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

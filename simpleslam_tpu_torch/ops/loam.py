@@ -12,10 +12,17 @@ Port of ``simpleslam_tpu/ops/loam.py`` with the reference's thresholds
   step is applied; at most 8 iterations; >= 6 valid rows; rotation
   re-orthonormalized after the loop.
 
-On CUDA tensors the GN loop is one launch of the kernel K3
-(``loam_kernels.gn_loop_fused``); its plain version ``gn_loop_stepwise`` is
-the same loop driven from Python through the linearization kernels K1/K2
-(their plain versions for CPU tensors). The functions below
+Three kinds of target serve the candidate gather, as in the reference: the
+merged dense map (one int16 row per query, the production target), the
+dense map (corner-selected 2x2x2 gather, 8 rows per query) and the sorted
+voxel table (27-cell key search, the compact target of the sharded path).
+
+On CUDA tensors the GN loop against a merged map is one launch of the
+kernel K3 (``loam_kernels.gn_loop_fused``); its plain version
+``gn_loop_stepwise`` is the same loop driven from Python through the
+linearization kernels (their plain versions for CPU tensors): K1 on a
+merged map, the torch gather plus K4 on the other two targets, and K2
+against the frozen planes in between. The functions below
 (``fit_planes``, ``plane_normal_equations``,
 ``normal_equations_from_candidates``) are the same math on an explicit
 candidate tensor, as the reference package states it.
@@ -23,14 +30,18 @@ candidate tensor, as the reference package states it.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Union
 
 import torch
 
 from . import geometry as geo
 from .linalg3 import symeig3x3_smallest
 from .pointcloud import PointCloud
-from .voxel import MergedDenseVoxelMap, gather_neighbors_merged
+from .voxel import (DenseVoxelMap, MergedDenseVoxelMap, VoxelMap,
+                    gather_neighbors, gather_neighbors_corner,
+                    gather_neighbors_merged)
+
+Target = Union[MergedDenseVoxelMap, DenseVoxelMap, VoxelMap]
 
 PLANE_PTS = 5
 MAX_SEARCH_SQ = 1.0
@@ -174,11 +185,30 @@ def normal_equations_from_candidates(src: PointCloud, cand: torch.Tensor,
                                   pose)
 
 
-def gather_candidates(src: PointCloud, vm: MergedDenseVoxelMap,
-                      pose: torch.Tensor):
-    """Candidate gather at ``pose``: one merged row per query."""
-    return gather_neighbors_merged(vm, geo.transform_points(pose, src.xyz),
-                                   src.mask)
+def gather_candidates_at(vm: Target, p_map: torch.Tensor, mask: torch.Tensor):
+    """Candidate gather of map-frame queries ``p_map`` (Q, 3), by the kind of
+    target: one merged row per query, the corner-selected 2x2x2 block of a
+    dense map (both need a map grid >= 2 * sqrt(MAX_SEARCH_SQ); LOAM uses
+    2.0), or the 27-cell key search of a sorted table (grid >= 1.0)."""
+    if isinstance(vm, MergedDenseVoxelMap):
+        return gather_neighbors_merged(vm, p_map, mask)
+    if isinstance(vm, DenseVoxelMap):
+        return gather_neighbors_corner(vm, p_map, mask)
+    if isinstance(vm, VoxelMap):
+        return gather_neighbors(vm, p_map, mask, 1)
+    raise TypeError(f"not a LOAM target: {type(vm).__name__}")
+
+
+def gather_candidates(src: PointCloud, vm: Target, pose: torch.Tensor):
+    """Candidate gather at ``pose`` (see ``gather_candidates_at``)."""
+    return gather_candidates_at(vm, geo.transform_points(pose, src.xyz),
+                                src.mask)
+
+
+def build_normal_equations(src: PointCloud, vm: Target, pose: torch.Tensor):
+    """One GN linearization: masked J^T J (6, 6), J^T e (6,), n_valid."""
+    cand, cand_ok = gather_candidates(src, vm, pose)
+    return normal_equations_from_candidates(src, cand, cand_ok, pose)
 
 
 def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
@@ -197,33 +227,44 @@ def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
     return torch.linalg.solve(JtJ_safe, -JtE)
 
 
-def gn_loop_stepwise(src: PointCloud, vm: MergedDenseVoxelMap,
+def gn_loop_stepwise(src: PointCloud, vm: Target,
                      init_pose: torch.Tensor, max_iters: int = MAX_ITERS,
                      degen_per_row: float = 0.0) -> LoamResult:
-    """The GN loop driven from Python: the plain version of the kernel K3.
+    """The GN loop driven from Python: the plain version of the kernel K3,
+    and the loop itself for a dense or sorted-table target.
 
-    K1 (``fit_and_linearize_merged``) gathers, fits the plane set and
-    linearizes at the start pose and on every refresh; K2
+    At the start pose and on every refresh the plane set is fitted and
+    linearized in one pass: K1 (``fit_and_linearize_merged``) on a merged
+    map, else the torch gather and K4 (``fit_and_linearize_candidates``); K2
     (``plane_normal_equations``) linearizes against the frozen planes on the
     other iterations. This is the reference loop's schedule exactly: it fits
     at the start pose and at every refresh pose and linearizes at that same
     pose in the same iteration.
 
     One host read per iteration decides the loop (converged, starved, moved
-    past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors only.
+    past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors, and on
+    CUDA tensors for the targets K3 does not read.
     """
     from . import loam_kernels as lk
 
-    if init_pose.is_cuda:
+    merged = isinstance(vm, MergedDenseVoxelMap)
+    if init_pose.is_cuda and merged:
         lk.K3_PLAIN_CUDA_CALLS += 1
+
+    def fit_and_linearize(p_map):
+        if merged:
+            return lk.fit_and_linearize_merged(vm, p_map, sqrt_r, src.mask)
+        cand, cand_ok = gather_candidates_at(vm, p_map, src.mask)
+        return lk.fit_and_linearize_candidates(cand, cand_ok, p_map, sqrt_r,
+                                               src.mask)
+
     pose = init_pose.to(torch.float32)
     sqrt_r = source_sqrt_range(src)
     r_max = torch.amax(torch.where(src.mask, torch.linalg.norm(src.xyz, dim=-1),
                                    torch.zeros_like(sqrt_r)))
     anchor = pose
     p_map = geo.transform_points(pose, src.xyz)
-    JtJ, JtE, n_valid, planes = lk.fit_and_linearize_merged(
-        vm, p_map, sqrt_r, src.mask)
+    JtJ, JtE, n_valid, planes = fit_and_linearize(p_map)
     gathers, iters = 1, 0
     while True:
         enough = n_valid >= MIN_VALID_ROWS
@@ -245,8 +286,7 @@ def gn_loop_stepwise(src: PointCloud, vm: MergedDenseVoxelMap,
             break
         p_map = geo.transform_points(pose, src.xyz)
         if float(state[2]) > REGATHER_DIST:
-            JtJ, JtE, n_valid, planes = lk.fit_and_linearize_merged(
-                vm, p_map, sqrt_r, src.mask)
+            JtJ, JtE, n_valid, planes = fit_and_linearize(p_map)
             anchor = pose
             gathers += 1
         else:
@@ -257,17 +297,19 @@ def gn_loop_stepwise(src: PointCloud, vm: MergedDenseVoxelMap,
                       n_valid, counts[1])
 
 
-def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
+def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
             max_iters: int = MAX_ITERS,
             degen_per_row: float = 0.0) -> LoamResult:
     """The full GN loop (reference ``LoamRegister::scan2Map``).
 
-    On CUDA tensors the whole loop is one launch of K3
+    On CUDA tensors the whole loop against a merged map is one launch of K3
     (``loam_kernels.gn_loop_fused``), with no host read; a failed build or
-    launch raises. On CPU tensors it is K3's plain version,
-    ``gn_loop_stepwise``.
+    launch raises. A dense or sorted-table target runs ``gn_loop_stepwise``
+    on either device (on CUDA: K4 per gather, K2 per other iteration, one
+    host read per iteration). On CPU tensors a merged map runs it too, as
+    K3's plain version.
     """
-    if not init_pose.is_cuda:
+    if not (init_pose.is_cuda and isinstance(vm, MergedDenseVoxelMap)):
         return gn_loop_stepwise(src, vm, init_pose, max_iters, degen_per_row)
     from . import loam_kernels as lk
 
@@ -280,8 +322,10 @@ def gn_loop(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
                       counts[lk.GN_GATHERS])
 
 
-def scan2map(src: PointCloud, vm: MergedDenseVoxelMap, init_pose: torch.Tensor,
+def scan2map(src: PointCloud, vm: Target, init_pose: torch.Tensor,
              max_iters: int = MAX_ITERS,
              degen_per_row: float = 0.0) -> LoamResult:
-    """Register ``src`` to the merged voxel map from ``init_pose``."""
+    """Register ``src`` to the target map from ``init_pose``. A dense map
+    must be built with grid >= 2.0 and a sorted table with grid >= 1.0, so
+    the gathered neighbourhood covers the 1 m search radius."""
     return gn_loop(src, vm, init_pose, max_iters, degen_per_row)

@@ -19,6 +19,14 @@ The kernels replace the Pallas TPU kernel
   ``loam.gn_loop_stepwise``, the same loop driven from Python through K1 and
   K2 with one host read per iteration.
 
+- K4 ``fit_and_linearize_candidates``: the TPU kernel in its own form,
+  candidates in, normal equations out, for the dense map's corner gather
+  and the sorted table's 27-cell gather, which stay in torch; same
+  selection, plane fit and reduction as K1 through the same device
+  functions, and the plane set for K2. Bound on the card: the candidate
+  stream, a 1-byte flag for every candidate of a valid query and 12 bytes
+  of coordinates for every candidate whose flag is set.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built at first use) or raises. Nothing falls back.
 The counters count kernel launches, and plain-version calls on CUDA tensors
@@ -38,9 +46,11 @@ from .voxel import MergedDenseVoxelMap, gather_neighbors_merged
 K1_LAUNCHES = 0
 K2_LAUNCHES = 0
 K3_LAUNCHES = 0
+K4_LAUNCHES = 0
 K1_PLAIN_CUDA_CALLS = 0
 K2_PLAIN_CUDA_CALLS = 0
-K3_PLAIN_CUDA_CALLS = 0   # loam.gn_loop_stepwise on CUDA tensors
+K3_PLAIN_CUDA_CALLS = 0   # loam.gn_loop_stepwise on a merged map on CUDA
+K4_PLAIN_CUDA_CALLS = 0
 
 # K3's result row: the pose (4x4 row-major), then these
 GN_ROW = 20
@@ -48,10 +58,12 @@ GN_CONVERGED, GN_ITERS, GN_GATHERS, GN_N_VALID = 16, 17, 18, 19
 
 
 def reset_counts() -> None:
-    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES
+    global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
     global K1_PLAIN_CUDA_CALLS, K2_PLAIN_CUDA_CALLS, K3_PLAIN_CUDA_CALLS
-    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = 0
+    global K4_PLAIN_CUDA_CALLS
+    K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
     K1_PLAIN_CUDA_CALLS = K2_PLAIN_CUDA_CALLS = K3_PLAIN_CUDA_CALLS = 0
+    K4_PLAIN_CUDA_CALLS = 0
 
 
 # ---------------------------------------------------------------------------
@@ -66,6 +78,20 @@ def fit_and_linearize_merged_plain(vm: MergedDenseVoxelMap, p_map: torch.Tensor,
     if p_map.is_cuda:
         K1_PLAIN_CUDA_CALLS += 1
     cand, cand_ok = gather_neighbors_merged(vm, p_map, mask)
+    planes = loam.fit_planes_at(p_map, mask, cand, cand_ok)
+    return (*loam.plane_rows(planes, p_map, sqrt_r), planes)
+
+
+def fit_and_linearize_candidates_plain(cand: torch.Tensor,
+                                       cand_ok: torch.Tensor,
+                                       p_map: torch.Tensor,
+                                       sqrt_r: torch.Tensor,
+                                       mask: torch.Tensor):
+    """``fit_planes_at`` + ``plane_rows`` on gathered candidates:
+    (J^T J, J^T e, n_valid, Planes)."""
+    global K4_PLAIN_CUDA_CALLS
+    if p_map.is_cuda:
+        K4_PLAIN_CUDA_CALLS += 1
     planes = loam.fit_planes_at(p_map, mask, cand, cand_ok)
     return (*loam.plane_rows(planes, p_map, sqrt_r), planes)
 
@@ -163,6 +189,55 @@ def fit_and_linearize_merged(vm: MergedDenseVoxelMap, p_map: torch.Tensor,
         nv.data_ptr(), _stream(dev))
     _raise_on(err, "fit_and_linearize_merged")
     K1_LAUNCHES += 1
+    return jtj, jte, nv, Planes(centroid, normal, ok)
+
+
+def fit_and_linearize_candidates(cand: torch.Tensor, cand_ok: torch.Tensor,
+                                 p_map: torch.Tensor, sqrt_r: torch.Tensor,
+                                 mask: torch.Tensor):
+    """K4: 5-NN + plane fit + normal equations of ``p_map`` (Q, 3) map-frame
+    queries against their gathered candidates ``cand`` (Q, C, 3) f32 with
+    validity ``cand_ok`` (Q, C) bool, both contiguous; ``sqrt_r`` and
+    ``mask`` as for K1. C above the kernel's 256 candidates per query is
+    refused, not cut. Returns (J^T J (6, 6), J^T e (6,), n_valid () int32,
+    Planes)."""
+    global K4_LAUNCHES
+    dev = p_map.device
+    if dev.type == "cpu":
+        return fit_and_linearize_candidates_plain(cand, cand_ok, p_map,
+                                                  sqrt_r, mask)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"fit_and_linearize_candidates: unsupported device {dev}")
+    from ._build import library
+
+    lib = library()
+    n_q = p_map.shape[0]
+    if cand.dim() != 3:
+        raise ValueError(f"cand has shape {tuple(cand.shape)}, expected "
+                         f"({n_q}, C, 3)")
+    n_cand = cand.shape[1]
+    if not 1 <= n_cand <= lib.loam_max_candidates():
+        raise ValueError(f"{n_cand} candidates per query: the kernel takes 1 "
+                         f"to {lib.loam_max_candidates()}")
+    _check("cand", cand, torch.float32, (n_q, n_cand, 3), dev)
+    _check("cand_ok", cand_ok, torch.bool, (n_q, n_cand), dev)
+    _check("p_map", p_map, torch.float32, (n_q, 3), dev)
+    _check("sqrt_r", sqrt_r, torch.float32, (n_q,), dev)
+    _check("mask", mask, torch.bool, (n_q,), dev)
+    centroid = torch.empty((n_q, 3), dtype=torch.float32, device=dev)
+    normal = torch.empty((n_q, 3), dtype=torch.float32, device=dev)
+    ok = torch.empty((n_q,), dtype=torch.bool, device=dev)
+    partials = torch.empty((lib.loam_k1_blocks(n_q), 28), dtype=torch.float32,
+                           device=dev)
+    jtj, jte, nv = _outputs(dev)
+    err = lib.loam_fit_and_linearize_candidates(
+        cand.data_ptr(), cand_ok.data_ptr(), n_cand, p_map.data_ptr(),
+        sqrt_r.data_ptr(), mask.data_ptr(), n_q, centroid.data_ptr(),
+        normal.data_ptr(), ok.data_ptr(), partials.data_ptr(),
+        jtj.data_ptr(), jte.data_ptr(), nv.data_ptr(), _stream(dev))
+    _raise_on(err, "fit_and_linearize_candidates")
+    K4_LAUNCHES += 1
     return jtj, jte, nv, Planes(centroid, normal, ok)
 
 

@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from . import geometry as geo
+
 # Sentinel coordinate for padding rows: far from any plausible scan content
 # but small enough that squared distances stay finite in f32.
 PAD_COORD = 1.0e6
@@ -28,6 +30,9 @@ class PointCloud(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.xyz.shape[0]
+
+    def count(self) -> torch.Tensor:
+        return torch.sum(self.mask)
 
 
 def from_arrays(xyz: np.ndarray, intensity: np.ndarray, mask: np.ndarray,
@@ -69,6 +74,23 @@ def to_numpy(pc: PointCloud) -> np.ndarray:
     return pc.xyz[pc.mask].cpu().numpy()
 
 
+def empty(capacity: int, device=None) -> PointCloud:
+    return PointCloud(
+        torch.full((capacity, 3), PAD_COORD, dtype=torch.float32,
+                   device=device),
+        torch.zeros((capacity,), dtype=torch.float32, device=device),
+        torch.zeros((capacity,), dtype=torch.bool, device=device))
+
+
+def transform(pc: PointCloud, pose: torch.Tensor) -> PointCloud:
+    """Rigid transform of the valid points; padding rows are pinned back to
+    the sentinel so a rotated sentinel cannot drift near real data."""
+    moved = geo.transform_points(pose, pc.xyz)
+    xyz = torch.where(pc.mask[:, None], moved,
+                      torch.full_like(moved, PAD_COORD))
+    return PointCloud(xyz, pc.intensity, pc.mask)
+
+
 def compact(pc: PointCloud, out_capacity: Optional[int] = None) -> PointCloud:
     """Stable-move valid points to the front; optionally shrink capacity.
 
@@ -83,3 +105,22 @@ def compact(pc: PointCloud, out_capacity: Optional[int] = None) -> PointCloud:
     xyz = torch.where(mask[:, None], pc.xyz[order],
                       torch.full_like(pc.xyz[order], PAD_COORD))
     return PointCloud(xyz, pc.intensity[order], mask)
+
+
+def concat(a: PointCloud, b: PointCloud,
+           out_capacity: Optional[int] = None) -> PointCloud:
+    """Concatenate two padded clouds, compacting valid points to the front."""
+    merged = PointCloud(torch.cat([a.xyz, b.xyz]),
+                        torch.cat([a.intensity, b.intensity]),
+                        torch.cat([a.mask, b.mask]))
+    return compact(merged, out_capacity or (a.capacity + b.capacity))
+
+
+def crop_range(pc: PointCloud, center: torch.Tensor,
+               max_range: float) -> PointCloud:
+    """Invalidate points farther than ``max_range`` from ``center``."""
+    d2 = torch.sum((pc.xyz - center) ** 2, dim=-1)
+    mask = pc.mask & (d2 <= max_range * max_range)
+    xyz = torch.where(mask[:, None], pc.xyz,
+                      torch.full_like(pc.xyz, PAD_COORD))
+    return PointCloud(xyz, pc.intensity, mask)

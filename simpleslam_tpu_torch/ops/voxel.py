@@ -2,8 +2,9 @@
 voxel map that LOAM registers against, and the dense point and Gaussian
 maps that VGICP verifies loop closures with.
 
-Port of the dense-grid part of ``simpleslam_tpu/ops/voxel.py`` (the
-sorted-table ``VoxelMap`` of the sharded path is not ported). Every
+Port of ``simpleslam_tpu/ops/voxel.py``: the dense grids, and the
+sorted-table ``VoxelMap`` / ``GaussianVoxelMap`` whose lookups are a key
+search (``torch.searchsorted``) instead of index arithmetic. Every
 reduction here runs in a fixed order with static shapes: segments come from a
 stable sort plus ``searchsorted`` on the sorted keys (no ``unique``, no
 boolean indexing, so no hidden host sync), and each voxel's sum is taken over
@@ -52,10 +53,42 @@ def _scalar_tensor(v, dtype, device) -> torch.Tensor:
     return torch.full((), float(v), dtype=dtype, device=device)
 
 
+def _f32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _i32(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.int32), device=device)
+
+
 def voxel_keys(xyz: torch.Tensor, mask: torch.Tensor, origin: torch.Tensor,
                grid) -> torch.Tensor:
     grid = _scalar_tensor(grid, xyz.dtype, xyz.device)
     return pack_coords(voxel_coords(xyz, origin, grid), mask)
+
+
+def _sorted_keys(keys: torch.Tensor):
+    """Stable sort of the packed keys: (keys_s, order, seg_id,
+    num_segments). ``seg_id`` is each sorted point's voxel in ascending key
+    order, and ``n`` for invalid keys (which sort last, so it stays
+    nondecreasing); ``num_segments`` is a device scalar."""
+    n = keys.shape[0]
+    keys_s, order = torch.sort(keys, stable=True)
+    prev = torch.cat([keys_s.new_full((1,), -1), keys_s[:-1]])
+    is_new = keys_s != prev
+    invalid = keys_s == INVALID_KEY
+    seg_id = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    seg_id = torch.where(invalid, torch.full_like(seg_id, n), seg_id)
+    num_segments = torch.max(torch.where(invalid, torch.zeros_like(seg_id),
+                                         seg_id + 1))
+    return keys_s, order, seg_id, num_segments
+
+
+def _segment_ranges(seg_id: torch.Tensor, n_ids: int):
+    """(start, count) of segments 0 .. n_ids - 1 in the sorted points."""
+    ids = torch.arange(n_ids, dtype=torch.int32, device=seg_id.device)
+    start = torch.searchsorted(seg_id, ids)
+    return start, torch.searchsorted(seg_id, ids, right=True) - start
 
 
 def _sorted_segments(keys: torch.Tensor, xyz: torch.Tensor,
@@ -67,19 +100,8 @@ def _sorted_segments(keys: torch.Tensor, xyz: torch.Tensor,
     [seg_start[s], seg_start[s] + seg_count[s]); segments at or past
     ``num_segments`` (a device scalar) are empty.
     """
-    n = keys.shape[0]
-    keys_s, order = torch.sort(keys, stable=True)
-    prev = torch.cat([keys_s.new_full((1,), -1), keys_s[:-1]])
-    is_new = keys_s != prev
-    invalid = keys_s == INVALID_KEY
-    seg_id = torch.cumsum(is_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    # invalid keys sort last, so seg_id stays nondecreasing after this
-    seg_id = torch.where(invalid, torch.full_like(seg_id, n), seg_id)
-    num_segments = torch.max(torch.where(invalid, torch.zeros_like(seg_id),
-                                         seg_id + 1))
-    ids = torch.arange(n, dtype=torch.int32, device=keys.device)
-    seg_start = torch.searchsorted(seg_id, ids)
-    seg_count = torch.searchsorted(seg_id, ids, right=True) - seg_start
+    _, order, seg_id, num_segments = _sorted_keys(keys)
+    seg_start, seg_count = _segment_ranges(seg_id, keys.shape[0])
     return xyz[order], intensity[order], seg_start, seg_count, num_segments
 
 
@@ -120,6 +142,130 @@ def voxel_downsample(pc: PointCloud, grid, origin: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
+# Point-slab voxel map on a sorted key table (the compact target that the
+# reference's sharded registration path splits across devices)
+# ---------------------------------------------------------------------------
+
+
+class VoxelMap(NamedTuple):
+    """Sorted voxel table with per-voxel point slabs.
+
+    keys:   (V,) int32 ascending valid prefix, INVALID_KEY tail
+    slab:   (V, M, 3) f32 points (PAD_COORD padding)
+    counts: (V,) int32 valid points per voxel (<= M)
+    origin: (3,) f32; grid: () f32
+    """
+
+    keys: torch.Tensor
+    slab: torch.Tensor
+    counts: torch.Tensor
+    origin: torch.Tensor
+    grid: torch.Tensor
+
+    @property
+    def num_voxels(self) -> int:
+        return self.keys.shape[0]
+
+    @property
+    def slab_size(self) -> int:
+        return self.slab.shape[1]
+
+    @classmethod
+    def from_numpy(cls, keys, slab, counts, origin, grid,
+                   device) -> "VoxelMap":
+        """A map from host arrays (e.g. one the reference package built)."""
+        return cls(_i32(keys, device), _f32(slab, device),
+                   _i32(counts, device), _f32(origin, device),
+                   _f32(grid, device))
+
+
+def build_voxel_map(pc: PointCloud, grid, origin: torch.Tensor,
+                    num_voxels: int, slab_size: int) -> VoxelMap:
+    """Build the sorted voxel-slab table from a padded cloud.
+
+    One stable sort; each voxel keeps its first ``slab_size`` points by
+    rank, voxels beyond ``num_voxels`` are dropped. Row v gathers its points
+    from the sorted array (no scatter). As in the reference, a table longer
+    than the cloud's capacity n gets the padding points in row n, under an
+    INVALID key that no lookup finds.
+    """
+    dev = pc.xyz.device
+    n = pc.capacity
+    keys = voxel_keys(pc.xyz, pc.mask, origin, grid)
+    keys_s, order, seg_id, _ = _sorted_keys(keys)
+    xyz_s = pc.xyz[order]
+    start, count = _segment_ranges(seg_id, num_voxels)
+    lanes = torch.arange(slab_size, device=dev)
+    first = torch.clamp(start, max=n - 1)
+    src = torch.clamp(first[:, None] + lanes[None, :], max=n - 1)
+    counts = torch.clamp(count, max=slab_size).to(torch.int32)
+    valid = lanes[None, :] < counts[:, None]
+    pts = xyz_s[src]                                          # (V, M, 3)
+    slab = torch.where(valid[..., None], pts, torch.full_like(pts, PAD_COORD))
+    table_keys = torch.where(count > 0, keys_s[first],
+                             torch.full_like(keys_s[first], INVALID_KEY))
+    return VoxelMap(table_keys.to(torch.int32), slab, counts, origin,
+                    _scalar_tensor(grid, pc.xyz.dtype, dev))
+
+
+DIRECT7_OFFSETS = np.array(
+    [(0, 0, 0), (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+     (0, 0, -1)], dtype=np.int32)
+
+
+def lookup_voxels(keys_table: torch.Tensor, nkeys: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Find packed keys in the sorted table: -> (index, found_mask). The
+    INVALID tail keeps the table ascending; an index past the end is clipped
+    to the last row, whose key then decides."""
+    idx = torch.searchsorted(keys_table, nkeys.contiguous())
+    idx = torch.clamp(idx, 0, keys_table.shape[0] - 1)
+    found = (keys_table[idx] == nkeys) & (nkeys != INVALID_KEY)
+    return idx, found
+
+
+def gather_neighbors(vm: VoxelMap, queries: torch.Tensor,
+                     q_mask: torch.Tensor, radius: int = 1
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-radius candidate gather from the sorted table: queries (Q, 3)
+    -> (candidates (Q, K*M, 3), validity (Q, K*M)), K = (2 radius + 1)^3."""
+    offs = _neighbor_offsets(radius, queries.device)           # (K, 3)
+    c = voxel_coords(queries, vm.origin, vm.grid)
+    nc = c[:, None, :] + offs[None, :, :]                       # (Q, K, 3)
+    nkeys = pack_coords(nc, q_mask[:, None])
+    idx, found = lookup_voxels(vm.keys, nkeys)                  # (Q, K)
+    pts = vm.slab[idx]                                          # (Q, K, M, 3)
+    m = vm.slab_size
+    lane = torch.arange(m, dtype=torch.int32, device=queries.device)
+    valid = found[:, :, None] & (lane[None, None, :]
+                                 < vm.counts[idx][:, :, None])
+    q_, k_ = pts.shape[0], pts.shape[1]
+    return pts.reshape(q_, k_ * m, 3), valid.reshape(q_, k_ * m)
+
+
+def _k_nearest(cand: torch.Tensor, valid: torch.Tensor,
+               queries: torch.Tensor, k: int):
+    """The k nearest valid candidates per query, ties to the lower candidate
+    index as the reference's ``top_k`` (a stable sort; ``torch.topk``
+    promises no order among equals)."""
+    d2 = torch.sum((cand - queries[:, None, :]) ** 2, dim=-1)
+    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
+    sq, idx = torch.sort(d2, dim=1, stable=True)
+    sq, idx = sq[:, :k], idx[:, :k]
+    nbrs = torch.gather(cand, 1, idx[:, :, None].expand(-1, -1, 3))
+    return sq, nbrs, torch.isfinite(sq)
+
+
+def knn(vm: VoxelMap, queries: torch.Tensor, q_mask: torch.Tensor, k: int,
+        radius: int = 1) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """k nearest neighbours from the voxel neighbourhood: (sq_dists (Q, k),
+    neighbours (Q, k, 3), valid (Q, k)). Neighbours beyond the neighbourhood
+    are not seen: callers choose ``radius`` * grid >= their search radius."""
+    cand, valid = gather_neighbors(vm, queries, q_mask, radius)
+    return _k_nearest(cand, valid, queries, k)
+
+
+# ---------------------------------------------------------------------------
 # Dense local voxel grid and its merged 2x2x2 form (the LOAM target)
 # ---------------------------------------------------------------------------
 
@@ -140,6 +286,17 @@ class DenseVoxelMap(NamedTuple):
     grid: torch.Tensor
     dims: Tuple[int, int, int]
     slab_pts: int
+
+    @classmethod
+    def from_numpy(cls, slab, counts, corner, grid,
+                   dims: Tuple[int, int, int], slab_pts: int,
+                   device) -> "DenseVoxelMap":
+        """A map from host arrays (e.g. one the reference package built; its
+        rows may be padded past M*3 columns, which are cut here)."""
+        slab = np.asarray(slab, np.float32)[:, :int(slab_pts) * 3]
+        return cls(_f32(slab, device), _i32(counts, device),
+                   _f32(corner, device), _f32(grid, device),
+                   tuple(int(d) for d in dims), int(slab_pts))
 
 
 @functools.lru_cache(maxsize=None)
@@ -240,12 +397,34 @@ def knn_dense(dm: DenseVoxelMap, queries: torch.Tensor, q_mask: torch.Tensor,
     (Q, k), neighbours (Q, k, 3), valid (Q, k)). Ties go to the lower
     candidate index, as the reference's ``top_k`` does."""
     cand, valid = gather_neighbors_dense(dm, queries, q_mask, radius)
-    d2 = torch.sum((cand - queries[:, None, :]) ** 2, dim=-1)
-    d2 = torch.where(valid, d2, torch.full_like(d2, float("inf")))
-    sq, idx = torch.sort(d2, dim=1, stable=True)
-    sq, idx = sq[:, :k], idx[:, :k]
-    nbrs = torch.gather(cand, 1, idx[:, :, None].expand(-1, -1, 3))
-    return sq, nbrs, torch.isfinite(sq)
+    return _k_nearest(cand, valid, queries, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _corner_offsets(device) -> torch.Tensor:
+    """The 2x2x2 block's offsets, (8, 3) int32 on ``device`` (x outermost)."""
+    return torch.tensor([(x, y, z) for x in (0, 1) for y in (0, 1)
+                         for z in (0, 1)], dtype=torch.int32, device=device)
+
+
+def gather_neighbors_corner(dm: DenseVoxelMap, queries: torch.Tensor,
+                            q_mask: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Corner-selected 2x2x2 neighbourhood gather: 8 rows per query.
+
+    The two-voxel block whose minimum corner is ``floor((q - g/2) / g)``
+    covers the cube [q - g/2, q + g/2], so a map built with ``grid >= 2 *
+    search radius`` (LOAM: 2.0 for the 1 m gate) loses no neighbour.
+    Candidates come in the order of the 8 offsets (x outermost), M points
+    each, which decides ties in the 5-NN rounds downstream.
+    """
+    offs = _corner_offsets(queries.device)
+    base = torch.floor((queries - dm.corner) / dm.grid - 0.5).to(torch.int32)
+    nc = base[:, None, :] + offs[None, :, :]                    # (Q, 8, 3)
+    flat = _dense_flat(nc, dm.dims, q_mask[:, None])
+    pts, valid = _rows_to_points(dm.slab[flat], dm.slab_pts)    # (Q, 8, M, *)
+    q_, k_, m = pts.shape[0], pts.shape[1], dm.slab_pts
+    return pts.reshape(q_, k_ * m, 3), valid.reshape(q_, k_ * m)
 
 
 # int16 quantization of merged rows, corner-relative: a position is stored
@@ -279,12 +458,10 @@ class MergedDenseVoxelMap(NamedTuple):
                    dims: Tuple[int, int, int], slab_pts: int,
                    device) -> "MergedDenseVoxelMap":
         """A map from host arrays (e.g. one the reference package built)."""
-        def f32(a):
-            return torch.tensor(np.asarray(a, np.float32), device=device)
-
         return cls(torch.tensor(np.asarray(rows, np.int16), device=device),
-                   f32(scale), f32(corner), f32(grid),
-                   tuple(int(d) for d in dims), int(slab_pts))
+                   _f32(scale, device), _f32(corner, device),
+                   _f32(grid, device), tuple(int(d) for d in dims),
+                   int(slab_pts))
 
 
 def build_merged_dense_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
@@ -367,12 +544,9 @@ class DenseGaussianVoxelMap(NamedTuple):
                    dims: Tuple[int, int, int],
                    device) -> "DenseGaussianVoxelMap":
         """A map from host arrays (e.g. one the reference package built)."""
-        def f32(a):
-            return torch.tensor(np.asarray(a, np.float32), device=device)
-
-        return cls(f32(means), f32(covs),
-                   torch.tensor(np.asarray(counts, np.int32), device=device),
-                   f32(corner), f32(grid), tuple(int(d) for d in dims))
+        return cls(_f32(means, device), _f32(covs, device),
+                   _i32(counts, device), _f32(corner, device),
+                   _f32(grid, device), tuple(int(d) for d in dims))
 
 
 def build_dense_gaussian_voxel_map(pc: PointCloud, grid, center: torch.Tensor,
@@ -456,3 +630,81 @@ def gather_gaussians_dense(dgm: DenseGaussianVoxelMap, queries: torch.Tensor,
     valid, flat = lookup_gaussians_dense(dgm, queries, q_mask, offsets,
                                          min_points)
     return dgm.means[flat], dgm.covs[flat], valid, flat
+
+
+# ---------------------------------------------------------------------------
+# Gaussian voxel map on a sorted key table
+# ---------------------------------------------------------------------------
+
+
+class GaussianVoxelMap(NamedTuple):
+    """Sorted voxel table of Gaussian moments (mean, covariance, count)."""
+
+    keys: torch.Tensor    # (V,) int32
+    means: torch.Tensor   # (V, 3)
+    covs: torch.Tensor    # (V, 3, 3)
+    counts: torch.Tensor  # (V,) int32
+    origin: torch.Tensor  # (3,)
+    grid: torch.Tensor    # ()
+
+    @classmethod
+    def from_numpy(cls, keys, means, covs, counts, origin, grid,
+                   device) -> "GaussianVoxelMap":
+        """A map from host arrays (e.g. one the reference package built)."""
+        return cls(_i32(keys, device), _f32(means, device),
+                   _f32(covs, device), _i32(counts, device),
+                   _f32(origin, device), _f32(grid, device))
+
+
+def build_gaussian_voxel_map(pc: PointCloud, grid, origin: torch.Tensor,
+                             num_voxels: int,
+                             min_points: int = 6) -> GaussianVoxelMap:
+    """Per-voxel Gaussian moments in a sorted key table (the
+    VoxelGridCovariance role).
+
+    Voxels with fewer than ``min_points`` points keep their count and are
+    skipped by ``gather_gaussians``. Covariances are raw (E[x x^T] - mean
+    mean^T); NDT and VGICP condition them. Each voxel sums its points in
+    sorted order by a loop over ranks (no float atomics); the loop bound is
+    the largest occupancy, read once to the host.
+    """
+    del min_points  # a gather-time threshold, kept for the reference's signature
+    dev = pc.xyz.device
+    n = pc.capacity
+    keys = voxel_keys(pc.xyz, pc.mask, origin, grid)
+    keys_s, order, seg_id, _ = _sorted_keys(keys)
+    xyz_s = pc.xyz[order]
+    outer = (xyz_s[:, :, None] * xyz_s[:, None, :]).reshape(-1, 9)
+    start, count = _segment_ranges(seg_id, num_voxels)
+    first = torch.clamp(start, max=n - 1)
+    table_keys = torch.where(count > 0, keys_s[first],
+                             torch.full_like(keys_s[first], INVALID_KEY))
+    real = table_keys != INVALID_KEY
+    count = torch.where(real, count, torch.zeros_like(count))
+    sums = torch.zeros((num_voxels, 3), dtype=xyz_s.dtype, device=dev)
+    sums2 = torch.zeros((num_voxels, 9), dtype=xyz_s.dtype, device=dev)
+    for r in range(int(torch.amax(count)) if num_voxels else 0):
+        sel = torch.clamp(start + r, max=n - 1)
+        take = (r < count)[:, None]
+        sums = sums + torch.where(take, xyz_s[sel], torch.zeros_like(sums))
+        sums2 = sums2 + torch.where(take, outer[sel], torch.zeros_like(sums2))
+    cnt = torch.clamp(count, min=1).to(sums.dtype)
+    means = sums / cnt[:, None]
+    covs = sums2.reshape(num_voxels, 3, 3) / cnt[:, None, None] \
+        - means[:, :, None] * means[:, None, :]
+    return GaussianVoxelMap(table_keys.to(torch.int32), means, covs,
+                            count.to(torch.int32), origin,
+                            _scalar_tensor(grid, pc.xyz.dtype, dev))
+
+
+def gather_gaussians(gvm: GaussianVoxelMap, queries: torch.Tensor,
+                     q_mask: torch.Tensor, offsets: torch.Tensor,
+                     min_points: int = 6):
+    """Gaussian voxels at ``queries`` + ``offsets`` (K, 3) int32 (e.g.
+    DIRECT7_OFFSETS): (means (Q, K, 3), covs (Q, K, 3, 3), valid (Q, K))."""
+    c = voxel_coords(queries, gvm.origin, gvm.grid)
+    nc = c[:, None, :] + offsets[None, :, :]
+    nkeys = pack_coords(nc, q_mask[:, None])
+    idx, found = lookup_voxels(gvm.keys, nkeys)
+    valid = found & (gvm.counts[idx] >= min_points)
+    return gvm.means[idx], gvm.covs[idx], valid

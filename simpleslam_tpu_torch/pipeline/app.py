@@ -7,9 +7,11 @@ scan-by-scan replay of a ``SensorStreams`` bundle, with wheel/IMU messages
 fed to the EKF proxy in stamp order and map updates and backend passes run
 inline at their event points; ``main --streamed`` drives
 ``pipeline/streamed.py`` instead, and ``pipeline/threaded.py`` holds the
-resident-thread form. The visualizer and multi-device runs are not ported
-yet: a config that asks for them is refused, never run as a reduced
-pipeline.
+resident-thread form. The input is the synthetic world, a recorded ROS1 bag
+(``--bag``) or a KITTI velodyne directory (``--kitti``), both read by
+``pipeline/bagio.py``; with ``vis.enable`` the aligned scans go to
+``pipeline/vis.py``. Multi-device runs are not ported yet: a config that
+asks for them is refused, never run as a reduced pipeline.
 """
 
 from __future__ import annotations
@@ -46,10 +48,6 @@ def _check_ported(cfg: dict) -> None:
         raise NotImplementedError(
             "multi-device execution (tpu.mesh_devices > 0) is not ported to "
             "simpleslam_tpu_torch yet (ROADMAP item 12); set it to 0")
-    if cfg["vis"].get("enable", False):
-        raise NotImplementedError(
-            "the visualizer is not ported to simpleslam_tpu_torch yet "
-            "(ROADMAP item 11); set vis.enable to false")
 
 
 class SlamSystem:
@@ -63,6 +61,13 @@ class SlamSystem:
         self.cfg = cfg
         self.lg = Logger.get_instance()
         self.mode = cfg["mode"]
+
+        self.vis = None
+        if cfg["vis"].get("enable", False):
+            from .vis import Vis
+
+            self.vis = Vis(out_dir=cfg["vis"].get("out_dir") or None)
+
         self.register = make_register()
         self.map_manager = MapManager(self.register, pcd_file=pcd_file)
         self.ekf_proxy = None
@@ -74,7 +79,7 @@ class SlamSystem:
             local_deque = self.ekf_proxy.local_odom
         self.frontend = Frontend(local_deque)
         self.lidar_odometry = LidarOdometry(self.frontend, self.map_manager,
-                                            self.register)
+                                            self.register, vis=self.vis)
 
         self.backend = None
         self.loop_closure = None
@@ -105,6 +110,8 @@ class SlamSystem:
         else:
             self.map_manager.save_trajectory()
             self.map_manager.save_kfs()
+        if self.vis is not None:
+            self.vis.close()
 
 
 def run_offline(system: SlamSystem, streams: sim.SensorStreams,
@@ -196,13 +203,22 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    """CLI: synthetic end-to-end run (offline replay, or ``--streamed``)."""
+    """CLI: one end-to-end replay (offline, or ``--streamed``) of the
+    synthetic world, a recorded bag or a KITTI velodyne directory."""
     import argparse
 
     ap = argparse.ArgumentParser(description="simpleslam_tpu_torch offline replay")
     ap.add_argument("--config", default=None, help="params.json path")
     ap.add_argument("--synthetic", action="store_true",
-                    help="run the synthetic world (the only input ported yet)")
+                    help="run the synthetic world (the default input)")
+    ap.add_argument("--bag", default=None, metavar="PATH",
+                    help="replay a recorded ROS1 bag (the reference's "
+                         "primary mode, app/main.cpp:155-207)")
+    ap.add_argument("--scan-topic", default="/lidar_points")
+    ap.add_argument("--wheel-topic", default="/wheel_odom")
+    ap.add_argument("--imu-topic", default="/imu")
+    ap.add_argument("--kitti", default=None, metavar="VELODYNE_DIR",
+                    help="replay a KITTI-style velodyne .bin sequence")
     ap.add_argument("--scans", type=int, default=120)
     ap.add_argument("--mode", default=None, choices=[None, "lo", "lio"])
     ap.add_argument("--pcr", default=None, choices=[None, "loam", "ndt", "vgicp"])
@@ -226,8 +242,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     _check_ported(cfg)
 
     lg = Logger.get_instance()
-    world = sim.make_world(seed=args.seed)
-    streams = sim.simulate_sequence(world, n_scans=args.scans, seed=args.seed)
+    if args.bag:
+        from . import bagio
+
+        streams = bagio.streams_from_bag(
+            args.bag, args.scan_topic, args.wheel_topic, args.imu_topic)
+        has_gt = False
+    elif args.kitti:
+        from . import bagio
+
+        streams = bagio.kitti_streams(args.kitti, max_scans=args.scans)
+        has_gt = False
+    else:
+        world = sim.make_world(seed=args.seed)
+        streams = sim.simulate_sequence(world, n_scans=args.scans,
+                                        seed=args.seed)
+        has_gt = True
     system = SlamSystem()
     system.prewarm()
     with trace(args.trace):
@@ -239,8 +269,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             result = run_offline(system, streams, progress=True)
     system.shutdown()
 
-    ate = sim.ate_rmse(streams.gt_poses, result.poses)
-    rpe = sim.rpe_rmse(streams.gt_poses, result.poses, delta=10)
+    ate = rpe = float("nan")  # recorded data carries no inline ground truth
+    if has_gt:
+        ate = sim.ate_rmse(streams.gt_poses, result.poses)
+        rpe = sim.rpe_rmse(streams.gt_poses, result.poses, delta=10)
     seq_dur = streams.scan_stamps[-1] - streams.scan_stamps[0]
     lg.info("finished %d scans in %.2fs (%.1fx realtime) on %s",
             len(streams.scan_stamps), result.wall_time,

@@ -22,6 +22,9 @@ device):
 - lio mode fuses the wheel+IMU tape on the host in 4096-event chunks, just
   far enough ahead of each batch (``_LocalOdomFeeder``), and uploads the
   batch's (K, 4, 4) local odometry with its scans;
+- with ``vis.enable`` every retired scan is handed to the visualizer
+  (``pipeline/vis.py``, a try-lock handoff) as its host-side prepped row
+  and the pose just read, so a publish touches the device nowhere;
 - keyframe admission, backend passes and loop closure run at batch
   boundaries, behind the odometry by up to ``tpu.pipeline_depth`` batches:
   on a resident worker thread (``_BackendWorker``), or inline with
@@ -39,6 +42,7 @@ times with a frozen state once done). Not ported yet: the mesh-sharded batch
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import deque
@@ -401,9 +405,22 @@ class _LocalOdomFeeder:
 
 
 def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
-                 sync_every: int = 16, progress: bool = False) -> SlamResult:
+                 sync_every: int = 16, progress: bool = False,
+                 device_probe: bool = False) -> SlamResult:
     """Replay ``streams`` through the streamed executor (lo or lio mode), in
-    batches of ``sync_every`` scans."""
+    batches of ``sync_every`` scans.
+
+    ``device_probe=True`` blocks on each batch right after it is enqueued
+    and books the wait as ``device_exec``: the time from the first launch of
+    the batch to its last kernel's end, at the cost of the pipelining (the
+    host no longer runs ahead of the device). The result read is then booked
+    in two parts, ``fetch_wait`` (what of the batch the host still had to
+    wait for) and ``fetch_xfer`` (the copy of the packed rows), instead of
+    ``fetch``. The poses are the same either way.
+
+    With ``SIMPLESLAM_DEBUG_SUPPORT`` set in the environment, every retired
+    scan prints its support, converged flag, iterations and position.
+    """
     lg = Logger.get_instance()
     cfg = Params.get_instance()
     if int(cfg["tpu"].get("mesh_devices", 0)):
@@ -523,6 +540,14 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
         pose_prev2 = pose_prev  # zero-velocity start
         odom2map = _pose_t(odom2map_np)
         kf_rows = {}  # scan idx -> prepped row kept for keyframe upload
+        debug_support = bool(os.environ.get("SIMPLESLAM_DEBUG_SUPPORT"))
+        vis = system.vis
+        vis_topic = cfg["vis"]["align"].strip("/")
+
+        def _wait_for_device() -> None:
+            """Block until the device has run everything enqueued so far."""
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
 
         def dispatch(si: int, pose_prev, pose_prev2, odom2map):
             """Prep + upload + register one batch. A final partial batch
@@ -555,6 +580,9 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             (pose_prev, pose_prev2, odom2map), packed = _batch_body(
                 rows_d, target, pose_prev, pose_prev2, odom2map, kind, clamp,
                 degen, jump_cap, locals_d)
+            if device_probe:
+                _wait_for_device()
+                timers.add("device_exec", tt.toc())
             timers.add("dispatch", tt.toc())
             # the map rebuild runs behind the batch just registered and is
             # committed at the next dispatch (double buffering)
@@ -571,8 +599,14 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             predate them and are re-based into the current map frame here."""
             nonlocal n_conv, retired_hi
             tt.tic()
-            stacked = packed.cpu().numpy()
-            timers.add("fetch", tt.toc())
+            if device_probe:
+                _wait_for_device()
+                timers.add("fetch_wait", tt.toc())
+                stacked = packed.cpu().numpy()
+                timers.add("fetch_xfer", tt.toc())
+            else:
+                stacked = packed.cpu().numpy()
+                timers.add("fetch", tt.toc())
             nb = len(batch)
             stats["n_batches"] += 1
             stats["n_reg"] += nb
@@ -582,6 +616,12 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             stats["support_sum"] += float(np.sum(sup))
             stats["support_min"] = min(stats["support_min"],
                                        float(np.min(sup)))
+            if debug_support:
+                for k, i in enumerate(batch):
+                    print(f"scan {i} sup {int(sup[k])} conv "
+                          f"{int(stacked[k, 16])} iters {int(stacked[k, 18])} "
+                          f"pos {stacked[k, 3]:.1f},{stacked[k, 7]:.1f}",
+                          flush=True)
             tt.tic()
             for k, i in enumerate(batch):
                 pose = corr @ stacked[k, :16].reshape(4, 4).astype(np.float64)
@@ -601,6 +641,10 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                         mm.store_keyframe_cloud(kf_idx, xyz)
                         kf_scan_idx.append(i)
                 scan_anchor[i] = len(kf_scan_idx) - 1
+                if vis is not None:
+                    # the aligned scan, from what the host already holds (its
+                    # prepped row and the pose just read): no device access
+                    vis.publish_pc(vis_topic, _dequant(*kf_rows[i]), pose)
                 kf_rows.pop(i, None)
             retired_hi = batch[-1] + 1
             timers.add("bookkeep", tt.toc())

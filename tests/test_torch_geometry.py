@@ -136,3 +136,20 @@ def test_correct_angles_wraps_about_the_reference():
     want = jgeo.correct_angles(half.numpy(), np.zeros(3))
     _close(tgeo.correct_angles(half, torch.zeros(3, dtype=torch.float64)),
            want, atol=1e-12)
+
+
+def test_quaternion_yaw_pitch_roll_and_identity():
+    """``quat_to_ypr``, ``ypr_to_quat`` and ``pose_identity``: the same
+    values as the reference's, and a round trip through both."""
+    rng = np.random.default_rng(13)
+    ypr = rng.uniform(-1.2, 1.2, size=(64, 3)).astype(np.float32)
+    q_t, q_j = tgeo.ypr_to_quat(torch.tensor(ypr)), jgeo.ypr_to_quat(ypr)
+    _close(q_t, q_j)
+    _close(tgeo.quat_to_ypr(q_t), jgeo.quat_to_ypr(q_j), atol=2e-5)
+    _close(tgeo.quat_to_ypr(q_t), ypr, atol=2e-5)
+    q = rng.normal(size=(64, 4)).astype(np.float32)   # not normalized
+    _close(tgeo.quat_to_ypr(torch.tensor(q)), jgeo.quat_to_ypr(q), atol=2e-5)
+    eye = tgeo.pose_identity()
+    assert eye.dtype == torch.float32 and eye.device.type == "cpu"
+    np.testing.assert_array_equal(eye.numpy(), np.asarray(jgeo.pose_identity()))
+    assert tgeo.pose_identity(torch.float64).dtype == torch.float64

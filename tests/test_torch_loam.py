@@ -19,6 +19,13 @@ further from the float64 solution than twice torch's own error on the
 scene's ill-conditioned ones; a Python loop that takes its steps through
 that code must reproduce ``gn_loop_stepwise``.
 
+The candidate form (K4 ``fit_and_linearize_candidates``, plain version here)
+and the GN loop are also held against the JAX package on the other two
+targets: a dense map through the corner gather (C = 192) and a sorted voxel
+table through the 27-cell gather (C = 216), built by the JAX package from the
+same submap. Normal equations at the tolerances above; ``scan2map`` poses
+within 1e-4 m and 1e-5 rad with the same converged flag and counts.
+
 The kernels themselves only run on a CUDA device: those tests carry the
 ``cuda`` marker and skip without one.
 """
@@ -186,6 +193,115 @@ def test_scan2map_parity(scene, degen):
     assert np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)) < 1e-3
     if degen == 0.0:  # the guard holds weak directions at the prediction
         assert np.linalg.norm(p_t[:3, 3] - pose[:3, 3]) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# the dense (corner gather) and sorted-table targets: K4's plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def other_targets(scene):
+    """The scene's submap as a dense map (grid 2.0) and a sorted table (grid
+    1.0, slab 8), built by the JAX package and handed over as numpy."""
+    world = sim.make_world(seed=0)
+    _, poses = sim.make_trajectory(10, 0.1, speed=1.5)
+    s0 = sim.simulate_scan(world, sim.sensor_from_body(poses[0]), n_az=720,
+                           n_el=12, rng=np.random.default_rng(0))
+    sub = jpc.from_numpy(
+        (s0 @ poses[0][:3, :3].T + poses[0][:3, 3]).astype(np.float32), 16384)
+    center = jnp.asarray(poses[0][:3, 3].astype(np.float32))
+    ds_map = jvox.voxel_downsample(sub, 0.5, center)
+    dense = jvox.build_dense_voxel_map(ds_map, 2.0, center, dims=(48, 48, 8),
+                                       slab_size=24)
+    table = jvox.build_voxel_map(ds_map, 1.0, center, num_voxels=32768,
+                                 slab_size=8)
+    return {
+        "dense": (dense, tvox.DenseVoxelMap.from_numpy(
+            np.asarray(dense.slab), dense.counts, dense.corner, dense.grid,
+            dense.dims, dense.slab_pts, "cpu")),
+        "table": (table, tvox.VoxelMap.from_numpy(
+            np.asarray(table.keys), np.asarray(table.slab), table.counts,
+            table.origin, table.grid, "cpu")),
+    }
+
+
+@pytest.mark.parametrize("ref", ["jnp", "pallas", "build"])
+@pytest.mark.parametrize("which", ["on-pose", "perturbed"])
+@pytest.mark.parametrize("kind", ["dense", "table"])
+def test_candidate_form_parity(scene, other_targets, kind, which, ref):
+    """``normal_equations_from_candidates``, ``build_normal_equations`` and
+    K4's plain version on gathered candidates, against the JAX functions and
+    the Pallas kernel on the same candidates."""
+    ds, _, tds, _, _ = scene
+    jvm, tvm = other_targets[kind]
+    pose_np = _pose(scene, which)
+    pose = jnp.asarray(pose_np)
+    cand, ok = jloam.gather_candidates(ds, jvm, pose)
+    assert cand.shape[1] == {"dense": 192, "table": 216}[kind]
+    if ref == "jnp":
+        want = jloam.normal_equations_from_candidates(ds, cand, ok, pose)
+    elif ref == "pallas":
+        want = loam_pallas.normal_equations_t(
+            ds, jnp.transpose(cand, (2, 1, 0)), ok.T.astype(jnp.float32), pose,
+            interpret=True)
+    else:
+        want = jloam.build_normal_equations(ds, jvm, pose)
+    tpose = torch.tensor(pose_np)
+    tcand, tok = tloam.gather_candidates(tds, tvm, tpose)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(ok))
+    np.testing.assert_array_equal(tcand.numpy(), np.asarray(cand))
+    _assert_close(tloam.normal_equations_from_candidates(tds, tcand, tok,
+                                                         tpose), want)
+    _assert_close(tloam.build_normal_equations(tds, tvm, tpose), want)
+    p_map = tgeo.transform_points(tpose, tds.xyz)
+    before = (lk.K4_LAUNCHES, lk.K4_PLAIN_CUDA_CALLS)
+    k4 = lk.fit_and_linearize_candidates(tcand, tok, p_map,
+                                         tloam.source_sqrt_range(tds),
+                                         tds.mask)
+    assert (lk.K4_LAUNCHES, lk.K4_PLAIN_CUDA_CALLS) == before  # CPU tensors
+    _assert_close(k4[:3], want)
+    # its plane set serves K2 on the following iterations
+    _assert_close(lk.plane_normal_equations(
+        k4[3], p_map, tloam.source_sqrt_range(tds)), want)
+
+
+def test_gather_candidates_refuses_another_target(scene):
+    _, _, tds, _, pose = scene
+    with pytest.raises(TypeError, match="not a LOAM target"):
+        tloam.gather_candidates(tds, object(), torch.tensor(pose))
+
+
+@pytest.mark.parametrize("degen", [0.0, jloam.DEGEN_EIGEN_PER_ROW],
+                         ids=["plain-solve", "degeneracy-guard"])
+@pytest.mark.parametrize("kind", ["dense", "table"])
+def test_scan2map_on_other_targets(scene, other_targets, kind, degen):
+    """One registration against a dense and a sorted-table target, from the
+    same start: same converged flag and counts as the JAX ``scan2map``, pose
+    within 1e-4 m and 1e-5 rad (same candidates, f32 sums in another
+    order)."""
+    ds, _, tds, _, _ = scene
+    jvm, tvm = other_targets[kind]
+    start = _start_pose(scene)
+    ref = jloam.scan2map(ds, jvm, jnp.asarray(start), degen_per_row=degen)
+    before = lk.K3_PLAIN_CUDA_CALLS
+    out = tloam.scan2map(tds, tvm, torch.tensor(start), degen_per_row=degen)
+    assert lk.K3_PLAIN_CUDA_CALLS == before
+    assert bool(out.converged) == bool(ref.converged)
+    assert int(out.iters) == int(ref.iters) and int(out.iters) > 1
+    assert int(out.n_gathers) == int(ref.n_gathers) >= 2
+    assert int(out.n_valid) == int(ref.n_valid) > 30
+    p_j, p_t = np.asarray(ref.pose), out.pose.numpy()
+    assert np.linalg.norm(p_t[:3, 3] - p_j[:3, 3]) < 1e-4
+    assert _rot_angle(p_j[:3, :3], p_t[:3, :3]) < 1e-5
+
+
+def test_scan2map_on_an_empty_table_fails_gracefully(scene):
+    """``tests/test_loam.py``'s empty-map case: no convergence, pose kept."""
+    tds = scene[2]
+    vm = tvox.build_voxel_map(tpc.empty(1024), 1.0, torch.zeros(3), 2048, 8)
+    out = tloam.scan2map(tds, vm, torch.eye(4))
+    assert not bool(out.converged) and int(out.n_valid) == 0
+    np.testing.assert_allclose(out.pose.numpy(), np.eye(4), atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +536,35 @@ def test_kernels_match_plain(cuda_scene, which):
     _assert_close([t.cpu() for t in k2], [t.cpu() for t in p2])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "table"])
+def test_candidate_kernel_matches_plain(cuda_scene, other_targets, kind):
+    """K4 against its plain version on the corner gather's and the sorted
+    table's candidates; two launches bit-identical; its planes feed K2."""
+    _, src, pose = cuda_scene
+    dev = pose.device
+    tvm = type(other_targets[kind][1])(*(
+        t.to(dev) if isinstance(t, torch.Tensor) else t
+        for t in other_targets[kind][1]))
+    pose = pose.clone()
+    pose[:3, 3] += torch.tensor(OFFSET, device=dev)
+    p_map = tgeo.transform_points(pose, src.xyz)
+    sqrt_r = tloam.source_sqrt_range(src)
+    cand, ok = tloam.gather_candidates_at(tvm, p_map, src.mask)
+    k4 = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, src.mask)
+    p4 = lk.fit_and_linearize_candidates_plain(cand, ok, p_map, sqrt_r,
+                                               src.mask)
+    _assert_close([t.cpu() for t in k4[:3]], [t.cpu() for t in p4[:3]])
+    assert torch.equal(k4[3].ok, p4[3].ok)
+    again = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, src.mask)
+    assert all(torch.equal(a, b) for a, b in zip(k4[:3], again[:3]))
+    wide = torch.zeros((8, 257, 3), device=dev)
+    with pytest.raises(ValueError, match="candidates per query"):
+        lk.fit_and_linearize_candidates(
+            wide, wide[..., 0].bool(), p_map[:8].contiguous(), sqrt_r[:8],
+            src.mask[:8])
+
+
 def test_wrappers_refuse_bad_inputs(scene):
     """A wrapper routes CPU tensors to the plain version and refuses a device
     it has no path for, never falling back."""
@@ -432,6 +577,11 @@ def test_wrappers_refuse_bad_inputs(scene):
     meta = torch.empty((p_map.shape[0], 3), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lk.fit_and_linearize_merged(tvm, meta, meta[:, 0], meta[:, 0].bool())
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk.fit_and_linearize_candidates(
+            torch.empty((p_map.shape[0], 192, 3), device="meta"),
+            torch.empty((p_map.shape[0], 192), device="meta").bool(), meta,
+            meta[:, 0], meta[:, 0].bool())
 
 
 def _rot_angle(Ra, Rb):

@@ -17,9 +17,11 @@ import numpy as np
 import pytest
 import torch
 
+from simpleslam_tpu.ops import roofline as jroof
 from simpleslam_tpu.pipeline import simulate as jsim
 from simpleslam_tpu.utils.config import DEFAULT_PARAMS as J_DEFAULTS
 from simpleslam_tpu_torch import native
+from simpleslam_tpu_torch.ops import roofline as troof
 from simpleslam_tpu_torch.pipeline import app as tapp
 from simpleslam_tpu_torch.pipeline import simulate as tsim
 from simpleslam_tpu_torch.utils.config import DEFAULT_PARAMS as T_DEFAULTS
@@ -56,9 +58,11 @@ def test_imports_without_jax_triton_or_reference():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 24, names\n"
+        "assert len(names) >= 32, names\n"
         "for n in ('models.filter', 'ops.ndt', 'ops.vgicp', 'pipeline.threaded',\n"
-        "          'utils.profiling'):\n"
+        "          'utils.profiling', 'pipeline.bagio', 'pipeline.vis', 'eval',\n"
+        "          'eval.metrics', 'eval.gps', 'eval.__main__', 'ops.roofline',\n"
+        "          'memcheck'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -90,13 +94,52 @@ def test_config_schema_is_the_reference_one_plus_the_device_key():
     assert port == J_DEFAULTS
 
 
+def test_roofline_counts_are_the_reference_ones_against_the_cards_peaks():
+    """``loam_batch_cost`` counts what the reference counts when given its
+    f32 rows, and by default the int16 rows the port really reads (half the
+    bytes); ``utilization`` divides by the H100's published peaks, not by
+    the reference's."""
+    kw = dict(n_queries=6144, slab_rows=1, lane_width=8 * 24 * 3, slab_pts=24,
+              n_scans=32, mean_iters=2.03, mean_gathers=1.38)
+    cost = troof.loam_batch_cost(**kw, lane_bytes=4.0)
+    assert cost == jroof.loam_batch_cost(**kw)
+    half = troof.loam_batch_cost(**kw)
+    assert half["hbm_bytes"] == cost["hbm_bytes"] / 2
+    assert half["flops"] == cost["flops"]
+    assert troof.H100_SXM_HBM_BYTES_PER_S == 3.35e12
+    assert troof.H100_SXM_F32_NON_TENSOR_FLOPS == 67e12
+    assert not [n for n in vars(troof) if "V5E" in n.upper()]
+    dev_s = 0.1
+    u = troof.utilization(half, dev_s)
+    assert u["mfu"] == pytest.approx(half["flops"] / dev_s / 67e12, rel=1e-2)
+    assert u["hbm_util"] == pytest.approx(half["hbm_bytes"] / dev_s / 3.35e12,
+                                          rel=1e-2)
+    assert u["sol_frac"] == max(u["mfu"], u["hbm_util"])
+    assert 0 < u["sol_frac"] <= 1
+    # at the speed of light itself every share is at most 1, one of them 1
+    sol = max(half["flops"] / 67e12, half["hbm_bytes"] / 3.35e12)
+    at = troof.utilization(half, sol)
+    assert at["sol_frac"] == 1.0 and max(at["mfu"], at["hbm_util"]) == 1.0
+    assert troof.utilization(half, 0.0) == {"mfu": 0.0, "hbm_util": 0.0,
+                                            "sol_frac": 0.0}
+
+
 @pytest.mark.parametrize("cfg,item", [
     ({"tpu": {"mesh_devices": 2}}, "item 12"),
-    ({"backend": {"enable": False}, "vis": {"enable": True}}, "item 11"),
+    ({"backend": {"enable": False}, "vis": {"enable": True}}, None),
 ], ids=["mesh", "vis"])
 def test_unported_parts_are_refused(cfg, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tapp.SlamSystem(dict(cfg, torch={"device": "cpu"}))
+    """Only multi-device execution is still refused. The visualizer, which
+    earlier slices refused, is built and wired to the odometry now."""
+    cfg = dict(cfg, torch={"device": "cpu"})
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            tapp.SlamSystem(cfg)
+        return
+    system = tapp.SlamSystem(cfg)
+    assert system.vis is not None and system.vis.enabled
+    assert system.lidar_odometry.vis is system.vis
+    system.shutdown()
 
 
 @pytest.mark.parametrize("cfg,kind", [
@@ -204,6 +247,7 @@ def _cloud():
 
 def test_native_backend_is_reported():
     assert native.backend() in ("cpp", "numpy")
+    assert native.available() == (native.backend() == "cpp")
     if native.backend() == "numpy":
         assert native._why_numpy
 
@@ -260,7 +304,9 @@ def test_native_fallback_is_reported_not_silent(monkeypatch, caplog):
 
 @pytest.mark.parametrize("fn", ["voxel_downsample_first", "pad_cloud",
                                 "transform_concat",
-                                "voxel_downsample_sort_quant_batch"])
+                                "voxel_downsample_sort_quant_batch",
+                                "voxel_downsample_centroid_pad",
+                                "voxel_downsample_centroid_pad_batch"])
 def test_native_paths_agree(fn, monkeypatch):
     """Deviation from the reference loader: its numpy fallback of
     ``voxel_downsample_first`` kept NaN rows and keyed voxels by
@@ -280,6 +326,14 @@ def test_native_paths_agree(fn, monkeypatch):
         "voxel_downsample_sort_quant_batch":
             lambda: native.voxel_downsample_sort_quant_batch(
                 [xyz, xyz[:700] * 4.0], 0.5, 2048, 2.0, 0.01),
+        # capacity below and above the voxel count: stride subsample, padding
+        "voxel_downsample_centroid_pad":
+            lambda: (*native.voxel_downsample_centroid_pad(xyz, 0.5, 2048, 1e6),
+                     *native.voxel_downsample_centroid_pad(xyz, 2.0, 8192,
+                                                           1e6, max_pts=3)),
+        "voxel_downsample_centroid_pad_batch":
+            lambda: native.voxel_downsample_centroid_pad_batch(
+                [xyz, xyz[:700] * 4.0, xyz[:0]], 0.5, 2048, 1e6),
     }
     cpp = calls[fn]()
     monkeypatch.setattr(native, "_load", lambda: None)
