@@ -56,19 +56,26 @@ fails with a nonzero exit on the first problem:
 11. threaded: ``run_threaded`` in bag mode (ingest, LO, map-update and
    backend threads) with LOAM and the backend on, on those 60 scans: every
    scan processed, ATE inside the streamed limit, K3 once per registration;
-12. K4 ``fit_and_linearize_candidates`` against its plain version at path
-   shapes: the streamed full path's last submap as a dense map (grid 2.0,
-   corner gather, 192 candidates per query) and as a sorted voxel table
-   (grid 1.0, slab 8, 27-cell gather, 216 candidates), its last scan
-   prepped at the latched capacity: n_valid and plane gates identical, the
-   normal equations within the reference's tolerances, two launches
-   bit-identical; CUDA-event medians, the bound and the plain version's time;
+12. K4 ``fit_and_linearize_candidates`` against its plain version: first on
+   synthetic candidates at C = 1, 7, 192, 216 and 256 (its 1-, 4- and
+   16-byte copy paths), with set flags on masked-out queries, with every
+   flag off and with every query masked out; then at path shapes: the streamed full path's last submap as a dense map
+   (grid 2.0, corner gather, 192 candidates per query) and as a sorted voxel
+   table (grid 1.0, slab 8, 27-cell gather, 216 candidates), its last scan
+   prepped at the latched capacity: n_valid and the plane set (ok,
+   centroid, normal) bit-identical, the normal equations within the
+   reference's tolerances, two launches bit-identical; its device time
+   beside an empty launch's, the bytes it moves, its bound, CUDA-event
+   medians and the plain version's time;
 13. ``loam.scan2map`` on both of those targets over the path's last 48 scans
-   from the recorded pose and from the 0.25 m offset: K4 launched once per
-   gather, K2 once per other iteration, no plain version on CUDA, and the
-   poses beside those of the merged map from the same start (different
-   candidate sets: int16 rows there, f32 here, 24 points per 2 m voxel
-   against 8 per 1 m voxel; the gap is printed and bounded);
+   from the recorded pose and from the 0.25 m offset, with sync debugging
+   set to raise: K3 launched once per registration, no K4, K2, K1 or plain
+   launch, and the poses beside those of the merged map from the same start
+   (different candidate sets: int16 rows there, f32 here, 24 points per 2 m
+   voxel against 8 per 1 m voxel; the gap is printed and bounded); then K3
+   against ``gn_loop_stepwise`` on the same cases, guard off and on (counts,
+   pose within 1e-4 m / 1e-5 rad, bit-identical repeats, the allowance of
+   phase 6), and K3's time, device time and bound on each target;
 14. the recorded-data path at full width: the bench sequence written as a
    ROS1 bag (``none`` chunks; a 5-scan ``lz4`` bag beside it), read back,
    and run through ``app.main --bag ... --streamed`` in the bench's ``full``
@@ -86,9 +93,11 @@ fails with a nonzero exit on the first problem:
    required;
 17. the result: a JSON line of the kernels K1-K4 (with the launches of each
    path: K3's launches, for K1 and K2 the times their bodies ran as phases
-   of K3, from the recorded gathers and iterations, and K4's launches on the
-   ``scan2map`` paths of 13), the nvidia-smi line, and last a JSON line
-   ``{"ok": true, "device": ...}``.
+   of K3, from the recorded gathers and iterations, the K1 phases of the
+   ``scan2map`` paths of 13 reading the dense map's or the table's
+   candidates; for K4 its own launches, 0 on every path: it serves K3's
+   plain version; K3's times and bounds on those targets), the nvidia-smi
+   line, and last a JSON line ``{"ok": true, "device": ...}``.
 
 ``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck`` (any subset)
 drives just the named paths of 8-16 after the build (a quick check while
@@ -1222,10 +1231,106 @@ def other_targets(system):
     return {"dense": dense, "table": table}
 
 
+K4_EDGE_CANDIDATES = (1, 7, 192, 216, 256)
+
+
+def k4_bytes(cand_ok: torch.Tensor, mask: torch.Tensor) -> int:
+    """Bytes K4 moves from and to device memory on these inputs: the flags
+    of every valid query, the coordinate chunks it copies (16-byte chunks
+    that hold a set flag where C is a multiple of 4, else 12 bytes per set
+    flag), the queries and the plane set."""
+    n_q, c = cand_ok.shape
+    ok_v = cand_ok[mask]
+    if c % 4 == 0:
+        k = torch.arange(c * 3 // 4, device=cand_ok.device)
+        c0 = (16 * k) // 12
+        c1 = torch.clamp((16 * k + 15) // 12, max=c - 1)
+        coords = 16 * int((ok_v[:, c0] | ok_v[:, c1]).sum())
+    else:
+        coords = 12 * int(ok_v.sum())
+    return ok_v.shape[0] * c + coords + n_q * (12 + 4 + 1) \
+        + n_q * (12 + 12 + 1) + (36 + 6 + 1) * 4
+
+
+def check_k4(tag: str, got, ref) -> None:
+    """K4 against its plain version: n_valid and the plane set bit-identical,
+    the sums within the reference's tolerances."""
+    jtj, jte, nv, pl = got
+    jtj0, jte0, nv0, pl0 = ref
+    if int(nv) != int(nv0):
+        fail(f"K4 {tag}: n_valid {int(nv)} vs plain {int(nv0)}")
+    for field in ("ok", "centroid", "normal"):
+        a, b = getattr(pl, field), getattr(pl0, field)
+        if not torch.equal(a, b):
+            d = (a.float() - b.float()).abs().reshape(a.shape[0], -1)
+            fail(f"K4 {tag}: plane {field} differs from the plain version in "
+                 f"{int((d != 0).any(-1).sum())} queries (max "
+                 f"{float(d.max()):.3e})")
+    scale = float(jtj0.abs().max())
+    escale = float(jte0.abs().max()) + 1e-9
+    if float((jtj - jtj0).abs().max()) > JTJ_RTOL * scale \
+            or float((jte - jte0).abs().max()) > JTE_RTOL * escale:
+        fail(f"K4 {tag}: normal equations disagree with the plain version")
+
+
+def k4_edge_cases(card: str) -> None:
+    """K4 against its plain version on synthetic candidates at the widths
+    and alignments it takes: C in K4_EDGE_CANDIDATES (1-byte, 4-byte and
+    16-byte copies), with a masked-out query's flags off (as every gather
+    leaves them) and set (which neither side reads), every flag off, and
+    every query masked out; candidates near a plane through each query so
+    that most planes pass the gates."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n_q = 1000
+    for c in K4_EDGE_CANDIDATES:
+        q = (torch.rand((n_q, 3), generator=g) * 40.0 - 20.0)
+        uv = torch.rand((n_q, c, 2), generator=g) * 1.4 - 0.7
+        w = torch.rand((n_q, c, 1), generator=g) * 0.002
+        cand = (q[:, None, :] + torch.cat([uv, w], dim=-1)).to(dev)
+        mask = (torch.rand((n_q,), generator=g) > 0.1).to(dev)
+        set_flags = (torch.rand((n_q, c), generator=g) > 0.3).to(dev)
+        flags = set_flags & mask[:, None]
+        p_map = q.to(dev)
+        sqrt_r = torch.sqrt(torch.clamp(torch.linalg.norm(p_map, dim=1),
+                                        min=1e-6))
+        cases = (("random flags", flags, mask),
+                 ("flags set on masked queries", set_flags, mask),
+                 ("every flag off", torch.zeros_like(flags), mask),
+                 ("every query masked", torch.zeros_like(flags),
+                  torch.zeros_like(mask)))
+        n_valid = {}
+        for tag, fl, m in cases:
+            ref = lk.fit_and_linearize_candidates_plain(cand, fl, p_map,
+                                                        sqrt_r, m)
+            got = lk.fit_and_linearize_candidates(cand, fl, p_map, sqrt_r, m)
+            again = lk.fit_and_linearize_candidates(cand, fl, p_map, sqrt_r,
+                                                    m)
+            torch.cuda.synchronize()
+            check_k4(f"C={c}, {tag}", got, ref)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    (*got[:3], *got[3]), (*again[:3], *again[3]))):
+                fail(f"K4 C={c}, {tag}: two launches differ: not "
+                     "deterministic")
+            n_valid[tag] = int(ref[2])
+        if c >= 32 and n_valid["random flags"] < 100:
+            fail(f"K4 C={c}: only {n_valid['random flags']} valid rows: the "
+                 "synthetic planes do not exercise the kernel")
+        print(f"  K4 at C={c} ({n_q} queries): random flags (n_valid "
+              f"{n_valid['random flags']}), flags set on masked queries, every "
+              f"flag off, every query masked: plane set and n_valid bit-identical "
+              f"to the plain version, sums inside the tolerances, two "
+              f"launches bit-identical ({card})")
+
+
 def hold_k4(label: str, vm, src, sqrt_r, p_on, p_off, card: str):
     """K4 against its plain version on the candidates that ``vm``'s gather
     gives one scan's queries, on-pose and perturbed; its planes feed K2.
-    Returns (max abs error, times, candidates per query)."""
+    Then its device time beside an empty launch's, the bytes it moves and
+    its bound. Returns (max abs error, times, bound, candidates per
+    query)."""
     from simpleslam_tpu_torch.ops import loam
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
@@ -1239,29 +1344,22 @@ def hold_k4(label: str, vm, src, sqrt_r, p_on, p_off, card: str):
                                                     src.mask)
         torch.cuda.synchronize()
         err = max(err, compare(f"K4 {tag}", got, ref))
-        g_ok, r_ok = got[3].ok, ref[3].ok
-        mism = int((g_ok != r_ok).sum())
-        both = g_ok & r_ok
-        dn = float((got[3].normal[both] - ref[3].normal[both]).abs().max())
-        dc = float((got[3].centroid[both] - ref[3].centroid[both]).abs().max())
+        check_k4(tag, got, ref)
         print(f"  K4 {tag}: {cand.shape[1]} candidates per query, plane ok "
-              f"{int(g_ok.sum())} vs plain {int(r_ok.sum())}, mismatch {mism} "
-              f"of {g_ok.numel()}; max |d normal| {dn:.3e}, max |d centroid| "
-              f"{dc:.3e} m")
-        if mism:
-            fail(f"K4 {tag}: plane gates differ from the plain version")
+              f"{int(got[3].ok.sum())}; plane set (ok, centroid, normal) and "
+              f"n_valid bit-identical to the plain version")
         again = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r,
                                                 src.mask)
         if not all(torch.equal(a, b) for a, b in zip(
                 (*got[:3], *got[3]), (*again[:3], *again[3]))):
             fail(f"K4 {tag}: two launches differ: not deterministic")
         # K4's planes serve K2 on the following iterations: at the same pose
-        # K2 gives K4's sums (per thread there, per warp here, so they may
+        # K2 gives K4's sums (per thread there, per lane here, so they may
         # round apart)
         compare(f"K2 on K4's planes, {tag}",
                 lk.plane_normal_equations(got[3], p_map, sqrt_r), got)
     # the gather, K4 and K2 of one refresh with sync debugging set to raise:
-    # no hidden host read in the new gathers or the wrapper
+    # no hidden host read in the gathers or the wrapper
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1281,33 +1379,66 @@ def hold_k4(label: str, vm, src, sqrt_r, p_on, p_off, card: str):
          "gather": time_ms(lambda: loam.gather_candidates_at(vm, p_on,
                                                              src.mask), 20)}
     t["k4_dev"], t["k4_dev_how"] = kernel_device_ms_how(
-        "fit_and_linearize_candidates_kernel",
+        "fit_and_linearize_candidates",
         lambda: lk.fit_and_linearize_candidates(cand, ok, p_on, sqrt_r,
                                                 src.mask))
+    t["empty_dev"], t["empty_dev_how"] = kernel_device_ms_how(
+        "empty_kernel", lambda: lk.empty_launch(src.xyz.device))
     n_cand = int(cand.shape[1])
     n_valid, n_ok = int(src.mask.sum()), int(ok.sum())
     if int(ok[~src.mask].sum()):
         fail(f"K4 {label}: a masked-out query has a set candidate flag")
     bd = bounds(src.capacity, n_valid, n_cand, n_cand_ok=n_ok)["k4"]
+    t["k4_bytes"] = k4_bytes(ok, src.mask)
     dev = t["k4_dev"]
+    print(f"  K4 {label}: an empty launch takes {1e3 * t['empty_dev']:.2f} "
+          f"us of device time ({t['empty_dev_how']}) ({card})")
     print(f"  K4 {label}: median {t['k4']:.4f} ms per wrapper call, device "
-          f"time of the kernel {1e3 * dev:.1f} us ({t['k4_dev_how']}) = "
-          f"{100 * bd[0] / dev:.1f} % of the bound's rate, plain "
+          f"time of the kernel {1e3 * dev:.2f} us ({t['k4_dev_how']}; the "
+          f"earlier one-warp-per-query kernel: 26.2 us corner / 27.6 us "
+          f"table, PERF.md) = "
+          f"{100 * bd[0] / dev:.1f} % of the bound's rate; it moves "
+          f"{t['k4_bytes'] / 1e6:.3f} MB against the bound's "
+          f"{bd[0] * HBM_BYTES_PER_S / 1e3 / 1e6:.3f} MB; plain "
           f"{t['k4_plain']:.4f} ms, the torch gather before it "
           f"{t['gather']:.4f} ms; bound {1e3 * bd[0]:.3f} us by {bd[1]} "
           f"({n_valid} valid queries of {src.capacity} x C={n_cand} flags, "
-          f"{n_ok} set flags x 12 B of coordinates) = "
-          f"{100 * bd[0] / t['k4']:.2f} % of the bound's rate per wrapper "
-          f"call ({card})")
+          f"{n_ok} set flags x 12 B of coordinates) ({card})")
     return err, t, bd, n_cand
 
 
-def scan2map_on_targets(system, streams, result, targets, card: str) -> dict:
+def target_k3_bound(kind: str, vm, src, pose, gathers: int, iters: int):
+    """K3's bound on a dense or table target from one start: what its K1
+    phases need per gather at the start pose (dense: the x of every slot of
+    the 8 rows, for the padding test, and 8 more bytes per set point; table:
+    a key and a count per cell, 12 bytes per set point), the scan once; its
+    operations as K1's and K2's."""
+    from simpleslam_tpu_torch.ops import geometry as geo
+    from simpleslam_tpu_torch.ops import loam
+
+    _, ok = loam.gather_candidates_at(
+        vm, geo.transform_points(pose, src.xyz), src.mask)
+    n_q, n_cand = ok.shape
+    n_valid, n_set = int(src.mask.sum()), int(ok.sum())
+    if kind == "dense":
+        per_gather = n_valid * n_cand * 4 + n_set * 8
+    else:
+        per_gather = n_valid * 27 * 8 + n_set * 12
+    nbytes = gathers * per_gather + n_q * (12 + 1) + 64 + 80
+    ops = gathers * n_valid * (24 * n_cand + 520) \
+        + (iters - gathers) * n_q * 120 + iters * 1500
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def scan2map_on_targets(system, streams, result, targets, card: str):
     """``loam.scan2map`` on the dense and the sorted-table target over the
     streamed path's last N_FUSED_SCANS scans, from the recorded pose and from
-    the offset start: K4 once per gather, K2 once per other iteration, no
-    plain version; the poses beside the merged map's from the same start.
-    Returns {path name: launch counts}."""
+    the offset start, under sync debugging set to raise: K3 once per
+    registration, no K4, K2 or plain launch; the poses beside the merged
+    map's from the same start; then K3 against ``gn_loop_stepwise`` on the
+    same cases (guard off and on), and K3's device time and bound on the last
+    scan. Returns ({path name: launch counts}, {kind: K3 times and bound})."""
     from simpleslam_tpu_torch.ops import loam
     from simpleslam_tpu_torch.ops import loam_kernels as lk
     from simpleslam_tpu_torch.pipeline import streamed
@@ -1325,14 +1456,29 @@ def scan2map_on_targets(system, streams, result, targets, card: str) -> dict:
         pose = torch.tensor(result.poses[j].astype(np.float32), device=dev)
         for start in (pose, offset_pose(pose)):
             cases.append((src, start, loam.scan2map(src, merged, start)))
-    out = {}
+    out, k3 = {}, {}
+    # ms per registration of the stepwise loop when it was these targets'
+    # production loop (PERF.md section 6)
+    before = {"dense": 13.75, "table": 12.53}
     for kind, vm in targets.items():
         name = f"scan2map_{kind}"
+        # the first launch of K3 on this kind of target, outside the count
+        loam.scan2map(cases[0][0], vm, cases[0][1])
+        torch.cuda.synchronize()
         lk.reset_counts()
         t0 = time.perf_counter()
-        res = [loam.scan2map(src, vm, start) for src, start, _ in cases]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            res = [loam.scan2map(src, vm, start) for src, start, _ in cases]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        launches = {"k3": lk.K3_LAUNCHES, "k4": lk.K4_LAUNCHES,
+                    "k2": lk.K2_LAUNCHES, "k1": lk.K1_LAUNCHES,
+                    "plain": (lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
+                              + lk.K3_PLAIN_CUDA_CALLS
+                              + lk.K4_PLAIN_CUDA_CALLS)}
         counts = torch.stack([torch.stack([
             r.iters, r.n_gathers, r.converged.to(torch.int32)])
             for r in res]).cpu().numpy()
@@ -1346,44 +1492,79 @@ def scan2map_on_targets(system, streams, result, targets, card: str) -> dict:
             t_gap = max(t_gap, float(np.linalg.norm(
                 p[:3, 3].astype(np.float64) - q[:3, 3])))
             r_gap = max(r_gap, _rot_angle(p[:3, :3], q[:3, :3]))
-        plain = (lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
-                 + lk.K3_PLAIN_CUDA_CALLS + lk.K4_PLAIN_CUDA_CALLS)
         print(f"{name}: {len(res)} registrations of scans {idx[0]}-{idx[-1]} "
-              f"in {wall:.2f} s ({1e3 * wall / len(res):.2f} ms each, one "
-              f"host read per iteration); gathers {gathers}, other iterations "
-              f"{others}, converged {int(counts[:, 2].sum())}; K4 launches "
-              f"{lk.K4_LAUNCHES}, K2 launches {lk.K2_LAUNCHES}, K1 / K3 "
-              f"launches {lk.K1_LAUNCHES} / {lk.K3_LAUNCHES}, plain CUDA calls "
-              f"{plain}; largest gap to the merged map's pose {t_gap:.3e} m / "
-              f"{r_gap:.3e} rad (limits {TARGET_GAP_T_MAX} / "
+              f"in {wall:.3f} s = {1e3 * wall / len(res):.3f} ms each (the "
+              f"stepwise loop as the production loop: {before[kind]} ms), with "
+              f"sync debugging set to "
+              f"raise; gathers {gathers}, other iterations {others}, "
+              f"converged {int(counts[:, 2].sum())}; K3 launches "
+              f"{launches['k3']}, K4 / K2 / K1 launches {launches['k4']} / "
+              f"{launches['k2']} / {launches['k1']}, plain CUDA calls "
+              f"{launches['plain']}; largest gap to the merged map's pose "
+              f"{t_gap:.3e} m / {r_gap:.3e} rad (limits {TARGET_GAP_T_MAX} / "
               f"{TARGET_GAP_R_MAX}) ({card})")
-        if lk.K4_LAUNCHES != gathers or lk.K2_LAUNCHES != others \
-                or gathers < len(res) or others == 0:
-            fail(f"{name}: K4 launches {lk.K4_LAUNCHES} for {gathers} gathers,"
-                 f" K2 launches {lk.K2_LAUNCHES} for {others} other iterations")
-        if plain or lk.K1_LAUNCHES or lk.K3_LAUNCHES:
-            fail(f"{name}: a plain version or another kernel ran on this path")
+        if launches["k3"] != len(res):
+            fail(f"{name}: K3 launches {launches['k3']} for {len(res)} "
+                 "registrations")
+        if launches["k4"] or launches["k2"] or launches["k1"] \
+                or launches["plain"]:
+            fail(f"{name}: another kernel or a plain version ran: {launches}")
         if counts[:, 2].sum() < 0.9 * len(res):
             fail(f"{name}: only {int(counts[:, 2].sum())} of {len(res)} "
                  "registrations converged")
         if t_gap > TARGET_GAP_T_MAX or r_gap > TARGET_GAP_R_MAX:
             fail(f"{name}: pose {t_gap:.3e} m / {r_gap:.3e} rad from the "
                  "merged map's")
-        out[name] = {"k1": 0, "k2": lk.K2_LAUNCHES, "k3": 0,
-                     "k4": lk.K4_LAUNCHES, "k1_standalone": 0,
-                     "k2_standalone": lk.K2_LAUNCHES, "plain": plain,
-                     "stepwise": 0, "registrations": len(res)}
-    return out
+        # K3 against its plain version on the same cases (not counted)
+        tally = FusedTally()
+        for c, (src, start, _) in enumerate(cases):
+            for degen in (0.0, DEGEN):
+                tally.compare(f"{name} case {c}, guard "
+                              f"{'on' if degen else 'off'}", src, vm, start,
+                              degen, verbose=False)
+        print(f"{name}: ", end="")
+        tally.check()
+        # K3's time on this target from the last scan's recorded pose
+        src, start, _ = cases[-2]
+        r0 = loam.scan2map(src, vm, start)
+        iters, g0 = int(r0.iters), int(r0.n_gathers)
+        start_c = start.to(torch.float32).contiguous()
+        t = {"ms": time_ms(lambda: loam.scan2map(src, vm, start)),
+             "plain_ms": time_ms(lambda: loam.gn_loop_stepwise(src, vm, start),
+                                 10)}
+        t["device_ms"], t["device_ms_how"] = kernel_device_ms_how(
+            "gn_loop_kernel", lambda: loam.scan2map(src, vm, start),
+            lambda: lk.gn_loop_fused(src.xyz, src.mask, vm, start_c,
+                                     loam.MAX_ITERS, 0.0))
+        t["bound_ms"], t["bound_by"] = target_k3_bound(kind, vm, src, start,
+                                                       g0, iters)
+        t["launches"] = launches["k3"]
+        t["max_abs_err"] = tally.t_err
+        print(f"{name}: K3 from scan {idx[-1]}'s recorded pose ({iters} "
+              f"iterations, {g0} K1 phases): median {t['ms']:.4f} ms per "
+              f"call, device {1e3 * t['device_ms']:.2f} us "
+              f"({t['device_ms_how']}) = "
+              f"{100 * t['bound_ms'] / t['device_ms']:.2f} % of the bound's "
+              f"rate (bound {1e3 * t['bound_ms']:.3f} us by {t['bound_by']}); "
+              f"stepwise {t['plain_ms']:.4f} ms ({card})")
+        k3[kind] = t
+        out[name] = {"k1": gathers, "k2": others, "k3": launches["k3"],
+                     "k4": launches["k4"], "k1_standalone": 0,
+                     "k2_standalone": 0, "plain": 0, "stepwise": 0,
+                     "registrations": len(res)}
+    return out, k3
 
 
 def k4_phases(system, streams, result, card: str):
     """Phases 12 and 13 on the streamed full path's inputs. Returns (K4's
-    kernels-line entry without its launches, {path name: launch counts})."""
+    kernels-line entry without its launches, {path name: launch counts},
+    K3's times and bounds on the two targets)."""
     from simpleslam_tpu_torch.ops import geometry as geo
     from simpleslam_tpu_torch.ops import loam
     from simpleslam_tpu_torch.pipeline import streamed
 
     phase("K4 against its plain version on the streamed full inputs")
+    k4_edge_cases(card)
     dev = system.register.device
     cap = int(result.extras["scan_capacity"])
     n = len(streams.scan_stamps)
@@ -1400,8 +1581,9 @@ def k4_phases(system, streams, result, card: str):
     print(f"scan {n - 1} at scan capacity {cap} ({int(cnts[0])} valid)")
     held = {kind: hold_k4(f"{kind} target", vm, src, sqrt_r, p_on, p_off, card)
             for kind, vm in targets.items()}
-    phase("scan2map on the dense and the sorted-table target")
-    by_path = scan2map_on_targets(system, streams, result, targets, card)
+    phase("scan2map on the dense and the sorted-table target (K3)")
+    by_path, k3_targets = scan2map_on_targets(system, streams, result,
+                                              targets, card)
     err, t, bd, n_cand = held["dense"]
     err_t, t_t, bd_t, n_cand_t = held["table"]
     entry = {
@@ -1416,14 +1598,17 @@ def k4_phases(system, streams, result, card: str):
         "library_ms": None,
         "timed_on": f"corner gather of the dense map, Q={cap}, C={n_cand}",
         "device_ms": t["k4_dev"], "device_ms_how": t["k4_dev_how"],
+        "empty_launch_device_ms": t["empty_dev"],
+        "bytes_moved": t["k4_bytes"],
         "sorted_table": {"candidates": n_cand_t, "ms": t_t["k4"],
                          "device_ms": t_t["k4_dev"],
                          "device_ms_how": t_t["k4_dev_how"],
+                         "bytes_moved": t_t["k4_bytes"],
                          "plain_ms": t_t["k4_plain"], "bound_ms": bd_t[0],
                          "bound_by": bd_t[1]},
         "gather_ms": {"dense": t["gather"], "table": t_t["gather"]},
     }
-    return entry, by_path
+    return entry, by_path, k3_targets
 
 
 # -- the recorded-data path ---------------------------------------------------
@@ -1692,19 +1877,21 @@ NEW_PATHS = ("lio", "ndt", "vgicp", "threaded", "k4", "recorded", "probe",
 
 def new_paths(which, streams, card: str, full=None):
     """Phases 8-16, those named in ``which``: ({path name: launch counts},
-    K4's kernels-line entry or None). ``full`` is the streamed full run's
+    K4's kernels-line entry or None, K3's times and bounds on the dense and
+    table targets or None). ``full`` is the streamed full run's
     (system, result), made here when a phase needs it and none is given."""
     from simpleslam_tpu_torch.pipeline import simulate as sim
 
     head = head_of(sim, streams, REGISTER_SCANS)
-    out, k4_entry = {}, None
+    out, k4_entry, k3_targets = {}, None, None
     if full is None and {"k4", "recorded"} & set(which):
         _, full_sys, full_res = streamed_run(
             "streamed full (bench full config)", BENCH_FULL, streams, card,
             prewarm=True, probe_scans=0)
         full = (full_sys, full_res)
     if "k4" in which:
-        k4_entry, paths = k4_phases(full[0], streams, full[1], card)
+        k4_entry, paths, k3_targets = k4_phases(full[0], streams, full[1],
+                                                card)
         out.update(paths)
     if "recorded" in which:
         full_res = full[1]
@@ -1724,7 +1911,7 @@ def new_paths(which, streams, card: str, full=None):
             out[f"streamed_{kind}"] = register_runs(kind, head, card)
     if "threaded" in which:
         out["threaded"] = threaded_run(head, card)
-    return out, k4_entry
+    return out, k4_entry, k3_targets
 
 
 def main() -> int:
@@ -1780,7 +1967,8 @@ def main() -> int:
     main_errs, main_t, main_bd = main_path_kernels(full_sys, streams, full_res,
                                                    card, tally)
     tally.check()
-    new, k4_entry = new_paths(NEW_PATHS, streams, card, (full_sys, full_res))
+    new, k4_entry, k3_targets = new_paths(NEW_PATHS, streams, card,
+                                          (full_sys, full_res))
     del full_sys, be, full_res
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
@@ -1804,19 +1992,29 @@ def main() -> int:
             k["launches_are"] = "runs of this kernel's body as a phase of gn_loop_fused"
             k["standalone_launches_by_path"] = {
                 p: c[key + "_standalone"] for p, c in by_path.items()}
+    # on the scan2map paths K3's K1 phase reads its candidates from the
+    # dense map's corner block or the table's 27 cells, not a merged row
+    kern[0]["phase_source_by_path"] = {
+        p: {"scan2map_dense": "dense map corner block",
+            "scan2map_table": "sorted table, 27 cells"}.get(p, "merged row")
+        for p, c in by_path.items() if c["k1"]}
     kern[2]["device_ms"] = main_t["k3_dev"]
     kern[2]["device_ms_how"] = main_t["k3_dev_how"]
     kern[2]["device_ms_from_offset_start"] = main_t["k3_off_dev"]
     kern[2]["device_ms_from_offset_start_how"] = main_t["k3_off_dev_how"]
     kern[2]["grid_barrier_ms"] = main_t["barrier"]
     kern[2]["max_abs_err_is"] = "pose translation against gn_loop_stepwise, metres"
-    # K4's paths are the scan2map runs on the dense and the sorted-table
-    # target; no other path launches it
-    k4_entry["launches"] = sum(c["k4"] for p, c in by_path.items()
-                               if p.startswith("scan2map_"))
+    # K3 on the other two targets (phase 13): its launches there, its time,
+    # device time and bound from the last scan's recorded pose
+    kern[2]["on_targets"] = k3_targets
+    # K4 serves K3's plain version (the stepwise loop's gather + K4 on a
+    # dense or table target) and the sharded path to come; every path runs
+    # K3 instead, so K4's own launches there are 0 (phase 12 holds it)
+    k4_entry["launches"] = by_path["streamed_full"]["k4"]
     k4_entry["launches_by_path"] = {p: c["k4"] for p, c in by_path.items()}
-    if k4_entry["launches"] == 0:
-        fail("K4 was launched no time on its paths")
+    k4_entry["launches_are"] = ("launches of this kernel; no path runs it: "
+                                "it serves gn_loop_stepwise, K3's plain "
+                                "version, on a dense or table target")
     kern.append(k4_entry)
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -22,19 +22,26 @@
 //    Bound: launch overhead and a (Q, 10)-float stream (bytes).
 // K3 loam_gn_loop: a scan's whole Gauss-Newton registration in one
 //    cooperative launch, K1's and K2's bodies as its phases (the TPU package
-//    runs the same loop as one lax.while_loop around the kernel). Bound: the
-//    row reads of its K1 phases (bytes); what it removes is everything
-//    between them: the launches, the 6x6 solve and pose update as separate
-//    small kernels, and the host read that decided each iteration. Design:
+//    runs the same loop as one lax.while_loop around the kernel), on any of
+//    the three LOAM targets: the merged map (one int16 row per query), the
+//    dense map (the corner-selected 2x2x2 block, 8 f32 rows of M points)
+//    and the sorted voxel table (a key search for each of 27 cells, M f32
+//    points each); the K1 phase is templated on that candidate source.
+//    Bound: the candidate reads of its K1 phases (bytes); what it removes is
+//    everything between them: the launches, the 6x6 solve and pose update
+//    as separate small kernels, and the host read that decided each
+//    iteration. Design:
 //    - one persistent block per SM; block b owns queries b, b + G, ... (the
 //      scan's valid queries come first, so striding balances the SMs);
 //    - a block keeps its queries' source points, sqrt(r), validity and
 //      fitted planes in shared memory over all iterations, so a K2 phase
 //      reads nothing from device memory;
 //    - in a K1 phase each warp owns a query at a time and double-buffers
-//      its rows with cp.async: the next valid query's row is in flight
-//      while the five selection rounds run on the current one; masked-out
-//      queries are skipped before any load;
+//      its candidates with cp.async: the next valid query's row (or 8 dense
+//      rows, or its table cells' set points) is in flight while the five
+//      selection rounds run on the current one; masked-out queries are
+//      skipped before any load; the index math of the dense and table
+//      sources is csrc/target_gather.h, which the CPU tests also compile;
 //    - one grid barrier per iteration (an integer counter, __threadfence):
 //      blocks publish 28 partial sums, pass the barrier, then each block
 //      adds all partials in block order and takes the small step
@@ -44,16 +51,25 @@
 //      overwrite what a slow one still reads.
 //
 // K4 loam_fit_and_linearize_candidates: the TPU kernel in its own form,
-//    candidates in, normal equations out, for the targets whose gather stays
-//    in torch (the dense map's corner gather, the sorted table's 27-cell key
-//    search). One warp per query reads the query's (C, 3) f32 candidates and
-//    (C,) validity flags straight from device memory, once, into registers
-//    (C <= 256), and runs the same selection, plane fit, gates and J row as
-//    K1 through the same device functions; it writes the plane set for K2.
-//    Bound: the candidate stream (bytes): the C flags of every valid query,
-//    one byte each, and 12 bytes of coordinates for every set flag; a
-//    masked-out query's flags are all false and it needs no candidate.
-//
+//    candidates in, normal equations out: (Q, C, 3) f32 candidates and
+//    (Q, C) flags in device memory, C <= 256 (the sharded path's form, and
+//    the gather + K4 of K3's plain version on a dense or table target).
+//    Bound: the candidate stream (bytes): the C flags of every valid query
+//    and 12 bytes of coordinates for every set flag. Design:
+//    - a warp walks its queries (valid ones first, masked-out ones written
+//      as the zero plane before any load), one query at a time, through a
+//      three-stage cp.async pipeline in shared memory: the flags of the
+//      query after next, the coordinates of the next query (only the
+//      16-byte chunks that hold a set flag), and the selection of this
+//      one, so two queries' loads are in flight behind every selection;
+//    - the selection is the warp's two __reduce_min_sync rounds, as in K1;
+//      the five chosen points go to a per-warp record, and the scalar tail
+//      (centroid, eigensolve, gates, J row, accumulate) runs one lane per
+//      query over up to 32 records at once, where K1 repeats it on 32
+//      lanes;
+//    - one launch: the last block to finish (an integer counter) adds all
+//      block partials in block order and writes J^T J, J^T e and n_valid.
+
 // Arithmetic follows the plain PyTorch versions in ops/loam_kernels.py and
 // ops/loam.py op for op. The library is built with -fmad=false so no
 // multiply-add is contracted behind the source's back; the one fused
@@ -70,6 +86,7 @@
 #include <mutex>
 
 #include "gn_step.h"
+#include "target_gather.h"
 
 namespace {
 
@@ -92,6 +109,24 @@ constexpr int kK3Threads = kK3Warps * 32;
 constexpr int kRowBufElems = kMaxCand * 3;   // int16 per staged row
 constexpr int kPartStride = 32;  // floats per block partial: sums, r_max, pad
 constexpr int kQueryFloats = 10;  // K3 per-query floats: p_src, sqrt_r, plane
+constexpr int kF32BufBytes = kMaxCand * 3 * 4;   // f32 candidates per buffer
+constexpr int kCellMeta = 32;   // ints per staged table buffer: 27 counts
+constexpr float kPadHalf = 0.5f * 1.0e6f;   // 0.5 * pointcloud.PAD_COORD
+constexpr int kK4Warps = 4;     // warps per K4 block
+constexpr int kK4Threads = kK4Warps * 32;
+// K4's grid: about this many queries per warp (the fastest of 1, 2, 4, 8,
+// 16, 32 on the card; tools/k4_breakdown.py builds the others with
+// -DLOAM_K4_QPW=n to time them)
+#ifndef LOAM_K4_QPW
+#define LOAM_K4_QPW 4
+#endif
+constexpr int kK4QueriesPerWarp = LOAM_K4_QPW;
+constexpr int kK4FlagSlots = 3;
+constexpr int kK4Rec = 21;      // tail record: x[5] y[5] z[5] p[3] sqrt_r q meta
+// how K4 copies a query's flags and coordinates (bits of `copy`)
+constexpr int kCopyFlags16 = 1;   // flags in 16-byte cp.async chunks
+constexpr int kCopyFlags4 = 2;    // flags in 4-byte cp.async words
+constexpr int kCopyCoords16 = 4;  // coordinates in 16-byte chunks, else 4
 
 struct Plane {
     float cx, cy, cz, nx, ny, nz;
@@ -245,26 +280,61 @@ struct QuantRow {
     }
 };
 
-// A query's gathered (C, 3) f32 candidates and (C,) 0/1 flags in device
-// memory; neighbouring lanes read neighbouring candidates.
-struct FloatCand {
-    const float* cand;
-    const uint8_t* ok;
+// K3's staged dense rows (shared memory): padding where x is PAD_COORD, as
+// voxel._rows_to_points reads it.
+struct StagedRows {
+    const float* s;
     __device__ __forceinline__ bool get(int c, float& x, float& y,
                                         float& z) const {
-        if (!__ldg(ok + c)) return false;
-        x = __ldg(cand + 3 * c);
-        y = __ldg(cand + 3 * c + 1);
-        z = __ldg(cand + 3 * c + 2);
+        const float x0 = s[3 * c];
+        if (!(x0 < kPadHalf)) return false;
+        x = x0;
+        y = s[3 * c + 1];
+        z = s[3 * c + 2];
         return true;
     }
 };
 
-// 5-NN selection, plane fit and gates of one query against its n_cand
-// candidates, by one warp; every lane returns the same plane.
+// K3's staged table cells (shared memory): cell c / m holds cnt[c / m] set
+// points (0 where its key was not found), as voxel.gather_neighbors reads
+// them; the rest of a cell was not copied.
+struct StagedCells {
+    const float* s;
+    const int* cnt;
+    int m;
+    __device__ __forceinline__ bool get(int c, float& x, float& y,
+                                        float& z) const {
+        const int cell = c / m;
+        if (c - cell * m >= cnt[cell]) return false;
+        x = s[3 * c];
+        y = s[3 * c + 1];
+        z = s[3 * c + 2];
+        return true;
+    }
+};
+
+// K4's staged candidates (shared memory): the query's C flags, and the
+// coordinates of the chunks that hold a set one.
+struct StagedCand {
+    const float* co;
+    const uint8_t* fl;
+    __device__ __forceinline__ bool get(int c, float& x, float& y,
+                                        float& z) const {
+        if (!fl[c]) return false;
+        x = co[3 * c];
+        y = co[3 * c + 1];
+        z = co[3 * c + 2];
+        return true;
+    }
+};
+
+// The five nearest candidates of one query by argmin rounds, by one warp:
+// sel[] in candidate-index order, -1 where fewer than five are set (the
+// same on every lane); returns the 5-NN gate.
 template <int kSlots, class Cand>
-__device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
-                                  float px, float py, float pz, int lane) {
+__device__ __forceinline__ bool select5(const Cand& cd, int n_cand,
+                                        bool valid, float px, float py,
+                                        float pz, int lane, int* sel) {
     // squared distances of this lane's candidates c = lane + 32 j
     float d2[kSlots];
 #pragma unroll
@@ -279,7 +349,6 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
     }
     // five argmin rounds; (d^2, index) compared lexicographically is the
     // reference's "min, then the first index among hits"
-    int sel[kPlanePts];
     int n_sel = 0;
     float d_k = CUDART_INF_F;
 #pragma unroll
@@ -312,8 +381,6 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
                 if (lane + 32 * j == bc) d2[j] = CUDART_INF_F;
         }
     }
-    const bool gate = valid && d_k < kMaxSearchSq && n_sel >= kPlanePts;
-
     // selected points in candidate-index order (the order a masked sum
     // over the candidate axis visits them)
 #pragma unroll
@@ -323,15 +390,29 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
             if (static_cast<unsigned>(sel[b]) < static_cast<unsigned>(sel[b - 1])) {
                 const int t = sel[b]; sel[b] = sel[b - 1]; sel[b - 1] = t;
             }
-    float x[kPlanePts], y[kPlanePts], z[kPlanePts];
+    return valid && d_k < kMaxSearchSq && n_sel >= kPlanePts;
+}
+
+// Each lane owns candidates lane, lane + 32, ...: 6 of them at the usual 192
+// candidates per query (8 voxels x 24), 8 at the most (kMaxCand).
+template <class Cand>
+__device__ __forceinline__ bool select5_any(const Cand& cd, int n_cand,
+                                            bool valid, float px, float py,
+                                            float pz, int lane, int* sel) {
+    if (n_cand <= 6 * 32)
+        return select5<6>(cd, n_cand, valid, px, py, pz, lane, sel);
+    return select5<kCandPerLane>(cd, n_cand, valid, px, py, pz, lane, sel);
+}
+
+// Plane fit and gates of the selected points (bit k of `present` set where
+// point k exists; absent points are 0 and take no part), on one thread.
+__device__ __forceinline__ Plane fit_plane5(const float* x, const float* y,
+                                            const float* z, unsigned present,
+                                            bool gate) {
     float sx = 0.0f, sy = 0.0f, sz = 0.0f;
 #pragma unroll
     for (int k = 0; k < kPlanePts; ++k) {
-        x[k] = y[k] = z[k] = 0.0f;
-        if (sel[k] >= 0) {
-            cd.get(sel[k], x[k], y[k], z[k]);   // a selected one is no padding
-            sx += x[k]; sy += y[k]; sz += z[k];
-        }
+        if ((present >> k) & 1u) { sx += x[k]; sy += y[k]; sz += z[k]; }
     }
     Plane pl;
     pl.cx = sx / 5.0f;
@@ -340,7 +421,7 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
     float m00 = 0.f, m01 = 0.f, m02 = 0.f, m11 = 0.f, m12 = 0.f, m22 = 0.f;
 #pragma unroll
     for (int k = 0; k < kPlanePts; ++k) {
-        if (sel[k] < 0) continue;
+        if (!((present >> k) & 1u)) continue;
         const float bx_ = x[k] - pl.cx, by_ = y[k] - pl.cy, bz_ = z[k] - pl.cz;
         m00 += bx_ * bx_; m01 += bx_ * by_; m02 += bx_ * bz_;
         m11 += by_ * by_; m12 += by_ * bz_; m22 += bz_ * bz_;
@@ -352,7 +433,7 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
     float rmax = 0.0f;
 #pragma unroll
     for (int k = 0; k < kPlanePts; ++k) {
-        if (sel[k] < 0) continue;
+        if (!((present >> k) & 1u)) continue;
         const float r = (x[k] - pl.cx) * pl.nx + (y[k] - pl.cy) * pl.ny
                       + (z[k] - pl.cz) * pl.nz;
         rmax = fmaxf(rmax, fabsf(r));
@@ -361,16 +442,25 @@ __device__ Plane select_and_fit_n(const Cand& cd, int n_cand, bool valid,
     return pl;
 }
 
-// Each lane owns candidates lane, lane + 32, ...: 6 of them at the usual 192
-// candidates per query (8 voxels x 24), 8 at the most (kMaxCand).
+// 5-NN selection, plane fit and gates of one query against its n_cand
+// candidates, by one warp; every lane returns the same plane.
 template <class Cand>
 __device__ __forceinline__ Plane select_and_fit_any(
         const Cand& cd, int n_cand, bool valid, float px, float py, float pz,
         int lane) {
-    if (n_cand <= 6 * 32)
-        return select_and_fit_n<6>(cd, n_cand, valid, px, py, pz, lane);
-    return select_and_fit_n<kCandPerLane>(cd, n_cand, valid, px, py, pz,
-                                          lane);
+    int sel[kPlanePts];
+    const bool gate = select5_any(cd, n_cand, valid, px, py, pz, lane, sel);
+    float x[kPlanePts], y[kPlanePts], z[kPlanePts];
+    unsigned present = 0u;
+#pragma unroll
+    for (int k = 0; k < kPlanePts; ++k) {
+        x[k] = y[k] = z[k] = 0.0f;
+        if (sel[k] >= 0) {
+            cd.get(sel[k], x[k], y[k], z[k]);   // a selected one is no padding
+            present |= 1u << k;
+        }
+    }
+    return fit_plane5(x, y, z, present, gate);
 }
 
 // The selection against a staged merged row.
@@ -447,47 +537,6 @@ fit_and_linearize_merged_kernel(
     if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
 }
 
-// K4: one warp per query on its gathered f32 candidates, laid out and
-// reduced like K1 (kK1QueriesPerWarp queries per warp in order, block
-// partials summed over warps in order).
-__global__ void __launch_bounds__(kK1Warps * 32)
-fit_and_linearize_candidates_kernel(
-        const float* __restrict__ cand, const uint8_t* __restrict__ cand_ok,
-        int n_cand, const float* __restrict__ p_map,
-        const float* __restrict__ sqrt_r, const uint8_t* __restrict__ mask,
-        int n_q, float* __restrict__ centroid, float* __restrict__ normal,
-        uint8_t* __restrict__ ok_out, float* __restrict__ partials) {
-    __shared__ float s_acc[kK1Warps][kNSums];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-
-    float acc[kNSums];
-#pragma unroll
-    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
-
-    for (int it = 0; it < kK1QueriesPerWarp; ++it) {
-        const int qi = (blockIdx.x * kK1Warps + warp) * kK1QueriesPerWarp + it;
-        if (qi >= n_q) break;
-        const float px = p_map[3 * qi], py = p_map[3 * qi + 1],
-                    pz = p_map[3 * qi + 2];
-        const bool valid = mask[qi] != 0;
-        const size_t first = static_cast<size_t>(qi) * n_cand;
-        const FloatCand cd = {cand + 3 * first, cand_ok + first};
-        const Plane pl = select_and_fit_any(cd, n_cand, valid, px, py, pz,
-                                            lane);
-        if (lane == 0) {
-            centroid[3 * qi] = pl.cx; centroid[3 * qi + 1] = pl.cy;
-            centroid[3 * qi + 2] = pl.cz;
-            normal[3 * qi] = pl.nx; normal[3 * qi + 1] = pl.ny;
-            normal[3 * qi + 2] = pl.nz;
-            ok_out[qi] = pl.ok ? 1 : 0;
-            accumulate_row(pl, px, py, pz, sqrt_r[qi], acc);
-        }
-    }
-    const float t = block_sums<kK1Warps>(acc, s_acc);
-    if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
-}
-
 // K2: one thread per query against the frozen plane set.
 __global__ void __launch_bounds__(kK2Threads)
 plane_normal_equations_kernel(
@@ -531,7 +580,7 @@ __device__ __forceinline__ void expand_sum(int t, float s, float* jtj,
     }
 }
 
-// Second pass shared by K1, K2 and K4: block partials summed in block order,
+// Second pass of K1 and K2: block partials summed in block order,
 // then expanded to the symmetric 6x6 J^T J, J^T e and the int count.
 __global__ void reduce_partials_kernel(const float* __restrict__ partials,
                                        int n_blocks, float* __restrict__ jtj,
@@ -555,6 +604,14 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
                  :: "r"(dst), "l"(src) : "memory");
 }
 
+// 4 bytes, for sources whose rows are not 16-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
+    const unsigned dst = static_cast<unsigned>(
+        __cvta_generic_to_shared(smem_dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(dst), "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
     asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -562,6 +619,11 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one of this thread's copy groups is still in flight.
 __device__ __forceinline__ void cp_async_wait_but_one() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until all of this thread's copy groups have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
@@ -607,23 +669,189 @@ __device__ __forceinline__ void transform_point(const float* pose, float x,
     p[2] = pose[6] * x + pose[7] * y + pose[8] * z + pose[11];
 }
 
-// Dynamic shared memory of K3: the warps' double row buffers, the staged
-// partials of all blocks, then the block's per-query state.
-__host__ __device__ inline size_t gn_loop_smem_bytes(int n_q, int grid) {
+// K3's candidate sources. Each is the launch's parameters (plain pointers
+// and sizes, filled on the host) with load() reading the map's device
+// scalars into the source a K1 phase uses: stage() puts one query's
+// candidates into a buffer of kBufBytes (and kMetaInts ints) of shared
+// memory with cp.async, fit() runs the selection and the plane fit on them.
+//
+// The merged map: one int16 row per query (K1's source).
+struct MergedSrc {
+    MapGeom g;
+    int row_chunks;   // 16-byte chunks per row
+    __device__ __forceinline__ void stage(float px, float py, float pz,
+                                          unsigned char* buf, int*,
+                                          int lane) const {
+        const int4* src = reinterpret_cast<const int4*>(
+            merged_row(g, true, px, py, pz));
+        int4* dst = reinterpret_cast<int4*>(buf);
+        for (int k = lane; k < row_chunks; k += 32) cp_async16(dst + k, src + k);
+    }
+    __device__ __forceinline__ Plane fit(const unsigned char* buf, const int*,
+                                         float px, float py, float pz,
+                                         int lane) const {
+        return select_and_fit(reinterpret_cast<const int16_t*>(buf), g, true,
+                              px, py, pz, lane);
+    }
+};
+
+struct MergedParams {
+    static constexpr int kBufBytes = kRowBufElems * 2;
+    static constexpr int kMetaInts = 0;
+    const int16_t* rows;
+    int n_cand;
+    const float* scale;
+    const float* corner;
+    const float* grid;
+    int gx, gy, gz;
+    __device__ __forceinline__ MergedSrc load() const {
+        return {load_geom(rows, n_cand, scale, corner, grid, gx, gy, gz),
+                n_cand * 3 * 2 / 16};
+    }
+};
+
+// The dense map: the 8 rows of the corner-selected 2x2x2 block
+// (voxel.gather_neighbors_corner), M f32 points each, padding PAD_COORD.
+struct DenseSrc {
+    const float* slab;
+    int m, gx, gy, gz;
+    float cx0, cy0, cz0, grid;
+    bool vec16;   // rows 16-byte aligned: copy in 16-byte chunks
+    __device__ __forceinline__ void stage(float px, float py, float pz,
+                                          unsigned char* buf, int*,
+                                          int lane) const {
+        const int bx = tg::corner_base(px, cx0, grid);
+        const int by = tg::corner_base(py, cy0, grid);
+        const int bz = tg::corner_base(pz, cz0, grid);
+        float* dst = reinterpret_cast<float*>(buf);
+        const int row_floats = 3 * m;
+        const int unit = vec16 ? 4 : 1;   // floats per copy
+        const int per_row = row_floats / unit;
+        for (int i = lane; i < tg::kCornerCells * per_row; i += 32) {
+            const int k = i / per_row;
+            const int64_t row = tg::corner_cell_row(bx, by, bz, k, gx, gy, gz,
+                                                    true);
+            const float* src = slab + row * row_floats
+                               + (i - k * per_row) * unit;
+            if (vec16) cp_async16(dst + unit * i, src);
+            else cp_async4(dst + i, src);
+        }
+    }
+    __device__ __forceinline__ Plane fit(const unsigned char* buf, const int*,
+                                         float px, float py, float pz,
+                                         int lane) const {
+        const StagedRows cd = {reinterpret_cast<const float*>(buf)};
+        return select_and_fit_any(cd, tg::kCornerCells * m, true, px, py, pz,
+                                  lane);
+    }
+};
+
+struct DenseParams {
+    static constexpr int kBufBytes = kF32BufBytes;
+    static constexpr int kMetaInts = 0;
+    const float* slab;
+    int m;
+    const float* corner;
+    const float* grid;
+    int gx, gy, gz, vec16;
+    __device__ __forceinline__ DenseSrc load() const {
+        return {slab, m, gx, gy, gz, corner[0], corner[1], corner[2], *grid,
+                vec16 != 0};
+    }
+};
+
+// The sorted voxel table: the 27 cells around the query's voxel, x
+// outermost (voxel.gather_neighbors with radius 1), each found by a lower
+// bound in the key table; only a found cell's set points are copied.
+struct TableSrc {
+    const int32_t* keys;
+    const float* slab;
+    const int32_t* counts;
+    int n_keys, m;
+    float ox, oy, oz, grid;
+    bool vec16;
+    __device__ __forceinline__ void stage(float px, float py, float pz,
+                                          unsigned char* buf, int* cnt_out,
+                                          int lane) const {
+        const int cx = tg::voxel_coord(px, ox, grid);
+        const int cy = tg::voxel_coord(py, oy, grid);
+        const int cz = tg::voxel_coord(pz, oz, grid);
+        // lane k < 27 searches cell k
+        int idx = 0, cnt = 0;
+        if (lane < tg::kTableCells) {
+            bool found = false;
+            idx = tg::table_lookup(
+                keys, n_keys, tg::table_cell_key(cx, cy, cz, lane, true),
+                &found);
+            cnt = found ? min(__ldg(counts + idx), m) : 0;
+            cnt_out[lane] = cnt;
+        }
+        float* dst = reinterpret_cast<float*>(buf);
+        const int row_floats = 3 * m;
+        for (int k = 0; k < tg::kTableCells; ++k) {
+            const int idx_k = __shfl_sync(0xffffffffu, idx, k);
+            const int cnt_k = __shfl_sync(0xffffffffu, cnt, k);
+            const float* src = slab + static_cast<int64_t>(idx_k) * row_floats;
+            float* d = dst + k * row_floats;
+            if (vec16) {
+                // the 16-byte chunks that hold the cell's cnt_k set points
+                if (lane < (3 * cnt_k + 3) / 4)
+                    cp_async16(d + 4 * lane, src + 4 * lane);
+            } else {
+                for (int w = lane; w < 3 * cnt_k; w += 32)
+                    cp_async4(d + w, src + w);
+            }
+        }
+    }
+    __device__ __forceinline__ Plane fit(const unsigned char* buf,
+                                         const int* cnt, float px, float py,
+                                         float pz, int lane) const {
+        const StagedCells cd = {reinterpret_cast<const float*>(buf), cnt, m};
+        return select_and_fit_any(cd, tg::kTableCells * m, true, px, py, pz,
+                                  lane);
+    }
+};
+
+struct TableParams {
+    static constexpr int kBufBytes = kF32BufBytes;
+    static constexpr int kMetaInts = kCellMeta;
+    const int32_t* keys;
+    int n_keys;
+    const float* slab;
+    const int32_t* counts;
+    int m;
+    const float* origin;
+    const float* grid;
+    int vec16;
+    __device__ __forceinline__ TableSrc load() const {
+        return {keys, slab, counts, n_keys, m, origin[0], origin[1],
+                origin[2], *grid, vec16 != 0};
+    }
+};
+
+// Dynamic shared memory of K3: the warps' double candidate buffers (and
+// their cell counts), the staged partials of all blocks, then the block's
+// per-query state.
+__host__ __device__ inline size_t gn_loop_smem_bytes(int n_q, int grid,
+                                                     int buf_bytes,
+                                                     int meta_ints) {
     const size_t n_local = static_cast<size_t>((n_q + grid - 1) / grid);
-    return sizeof(int16_t) * kK3Warps * 2 * kRowBufElems
+    return static_cast<size_t>(kK3Warps) * 2 * buf_bytes
+         + sizeof(int) * kK3Warps * 2 * meta_ints
          + sizeof(float) * grid * kPartStride
          + sizeof(float) * kQueryFloats * n_local + 2 * n_local;
 }
 
+template <class Params>
 __global__ void __launch_bounds__(kK3Threads, 1)
 gn_loop_kernel(
-        const int16_t* __restrict__ rows, int n_cand, const float* scale_p,
-        const float* corner_p, const float* grid_p, int gx, int gy, int gz,
-        const float* __restrict__ src_xyz, const uint8_t* __restrict__ mask,
-        int n_q, const float* __restrict__ init_pose, int max_iters,
+        const Params prm, const float* __restrict__ src_xyz,
+        const uint8_t* __restrict__ mask, int n_q,
+        const float* __restrict__ init_pose, int max_iters,
         float degen_per_row, float* partials, unsigned* counters,
         float* __restrict__ out) {
+    constexpr int kBufBytes = Params::kBufBytes;
+    constexpr int kMetaInts = Params::kMetaInts;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ float s_acc[kK3Warps][kNSums];
     __shared__ float s_sum[kPartStride];
@@ -639,9 +867,9 @@ gn_loop_kernel(
     const int n_local = first < n_q
         ? (n_q - first + n_blocks - 1) / n_blocks : 0;
 
-    int16_t* s_rows = reinterpret_cast<int16_t*>(smem_raw);
-    float* s_all = reinterpret_cast<float*>(
-        s_rows + kK3Warps * 2 * kRowBufElems);
+    unsigned char* s_bufs = smem_raw;
+    int* s_meta = reinterpret_cast<int*>(s_bufs + kK3Warps * 2 * kBufBytes);
+    float* s_all = reinterpret_cast<float*>(s_meta + kK3Warps * 2 * kMetaInts);
     float* s_x = s_all + n_blocks * kPartStride;
     float* s_y = s_x + n_local_max;
     float* s_z = s_y + n_local_max;
@@ -650,9 +878,7 @@ gn_loop_kernel(
     uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_plane + 6 * n_local_max);
     uint8_t* s_valid = s_ok + n_local_max;
 
-    const MapGeom g = load_geom(rows, n_cand, scale_p, corner_p, grid_p, gx,
-                                gy, gz);
-    const int row_chunks = n_cand * 3 * 2 / 16;
+    const auto src = prm.load();
 
     // prologue: the block's queries, sqrt(max(|p|, 1e-6)) and the block's
     // largest valid range; the start pose
@@ -674,9 +900,9 @@ gn_loop_kernel(
         my_rmax = fmaxf(my_rmax, __shfl_xor_sync(0xffffffffu, my_rmax, off));
     if (lane == 0) s_wmax[warp] = my_rmax;
     if (tid < 12) {
-        const int src = tid < 9 ? (tid / 3) * 4 + tid % 3 : (tid - 9) * 4 + 3;
-        s_pose[tid] = init_pose[src];
-        s_anchor[tid] = init_pose[src];
+        const int src_i = tid < 9 ? (tid / 3) * 4 + tid % 3 : (tid - 9) * 4 + 3;
+        s_pose[tid] = init_pose[src_i];
+        s_anchor[tid] = init_pose[src_i];
     }
     __syncthreads();
     float block_rmax = 0.0f;
@@ -694,21 +920,18 @@ gn_loop_kernel(
 
         if (refit) {
             // K1 phase: warp `warp` takes the block's valid queries warp,
-            // warp + W, ...; the next one's row is on its way (cp.async)
-            // while this one's selection runs
+            // warp + W, ...; the next one's candidates are on their way
+            // (cp.async) while this one's selection runs
             ++gathers;
-            int16_t* bufs = s_rows + warp * 2 * kRowBufElems;
+            unsigned char* bufs = s_bufs + warp * 2 * kBufBytes;
+            int* metas = s_meta + warp * 2 * kMetaInts;
             int j = warp;
             while (j < n_local && !s_valid[j]) j += kK3Warps;
             int stage = 0;
             float p[3];
             if (j < n_local) {
                 transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                const int4* src = reinterpret_cast<const int4*>(
-                    merged_row(g, true, p[0], p[1], p[2]));
-                int4* dst = reinterpret_cast<int4*>(bufs);
-                for (int k = lane; k < row_chunks; k += 32)
-                    cp_async16(dst + k, src + k);
+                src.stage(p[0], p[1], p[2], bufs, metas, lane);
             }
             cp_async_commit();
             while (j < n_local) {
@@ -717,19 +940,17 @@ gn_loop_kernel(
                 if (jn < n_local) {
                     float pn[3];
                     transform_point(pose, s_x[jn], s_y[jn], s_z[jn], pn);
-                    const int4* src = reinterpret_cast<const int4*>(
-                        merged_row(g, true, pn[0], pn[1], pn[2]));
-                    int4* dst = reinterpret_cast<int4*>(
-                        bufs + (stage ^ 1) * kRowBufElems);
-                    for (int k = lane; k < row_chunks; k += 32)
-                        cp_async16(dst + k, src + k);
+                    src.stage(pn[0], pn[1], pn[2],
+                              bufs + (stage ^ 1) * kBufBytes,
+                              metas + (stage ^ 1) * kMetaInts, lane);
                 }
                 cp_async_commit();   // an empty group after the last query
                 cp_async_wait_but_one();
                 __syncwarp();
                 transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                const Plane pl = select_and_fit(bufs + stage * kRowBufElems, g,
-                                                true, p[0], p[1], p[2], lane);
+                const Plane pl = src.fit(bufs + stage * kBufBytes,
+                                         metas + stage * kMetaInts, p[0],
+                                         p[1], p[2], lane);
                 if (lane == 0) {
                     float* dst = s_plane + 6 * j;
                     dst[0] = pl.cx; dst[1] = pl.cy; dst[2] = pl.cz;
@@ -745,10 +966,10 @@ gn_loop_kernel(
             // K2 phase: one thread per query against the kept planes
             for (int j = tid; j < n_local; j += kK3Threads) {
                 if (!s_ok[j]) continue;
-                const float* src = s_plane + 6 * j;
+                const float* src_pl = s_plane + 6 * j;
                 Plane pl;
-                pl.cx = src[0]; pl.cy = src[1]; pl.cz = src[2];
-                pl.nx = src[3]; pl.ny = src[4]; pl.nz = src[5];
+                pl.cx = src_pl[0]; pl.cy = src_pl[1]; pl.cz = src_pl[2];
+                pl.nx = src_pl[3]; pl.ny = src_pl[4]; pl.nz = src_pl[5];
                 pl.ok = true;
                 float p[3];
                 transform_point(pose, s_x[j], s_y[j], s_z[j], p);
@@ -850,6 +1071,340 @@ barrier_probe_kernel(unsigned* counters, int n) {
     grid_barrier_release(counters);
 }
 
+// ---------------------------------------------------------------------------
+// K4: the TPU kernel's candidates-in form, one launch
+// ---------------------------------------------------------------------------
+
+// Copy query qi's C flags into shared memory (`copy` says how they are
+// aligned); the 1-byte path stores them at once.
+__device__ __forceinline__ void k4_stage_flags(const uint8_t* cand_ok, int qi,
+                                               int n_cand, int copy,
+                                               uint8_t* dst, int lane) {
+    const uint8_t* src = cand_ok + static_cast<size_t>(qi) * n_cand;
+    if (copy & kCopyFlags16) {
+        for (int k = lane; k < n_cand / 16; k += 32)
+            cp_async16(dst + 16 * k, src + 16 * k);
+    } else if (copy & kCopyFlags4) {
+        for (int k = lane; k < n_cand / 4; k += 32)
+            cp_async4(dst + 4 * k, src + 4 * k);
+    } else {
+        for (int k = lane; k < n_cand; k += 32) dst[k] = __ldg(src + k);
+    }
+}
+
+// Copy the coordinates of query qi's set candidates (flags `fl`, already in
+// shared memory): the 16-byte chunks that hold one, else 4-byte words.
+__device__ __forceinline__ void k4_stage_coords(const float* cand, int qi,
+                                                int n_cand, int copy,
+                                                const uint8_t* fl, float* dst,
+                                                int lane) {
+    const float* src = cand + static_cast<size_t>(qi) * n_cand * 3;
+    if (copy & kCopyCoords16) {
+        // candidates 4g .. 4g + 3 fill the 16-byte chunks 3g .. 3g + 2:
+        // chunk 3g holds candidate 4g and the start of 4g + 1, 3g + 1 the
+        // rest of 4g + 1 and the start of 4g + 2, 3g + 2 the rest of 4g + 2
+        // and 4g + 3; one 4-byte read of the flags decides all three
+        const unsigned* fw = reinterpret_cast<const unsigned*>(fl);
+        for (int g = lane; g < n_cand / 4; g += 32) {
+            const unsigned w = fw[g];
+            const bool f0 = (w & 0xffu) != 0u, f1 = (w & 0xff00u) != 0u,
+                       f2 = (w & 0xff0000u) != 0u, f3 = (w >> 24) != 0u;
+            if (f0 || f1) cp_async16(dst + 12 * g, src + 12 * g);
+            if (f1 || f2) cp_async16(dst + 12 * g + 4, src + 12 * g + 4);
+            if (f2 || f3) cp_async16(dst + 12 * g + 8, src + 12 * g + 8);
+        }
+    } else {
+        for (int c = lane; c < n_cand; c += 32) {
+            if (!fl[c]) continue;
+            cp_async4(dst + 3 * c, src + 3 * c);
+            cp_async4(dst + 3 * c + 1, src + 3 * c + 1);
+            cp_async4(dst + 3 * c + 2, src + 3 * c + 2);
+        }
+    }
+}
+
+// The scalar tail of one query from its record, on one lane: plane fit,
+// gates, the plane set and the query's row added to acc.
+__device__ __forceinline__ void k4_tail(const float* r, float* centroid,
+                                        float* normal, uint8_t* ok_out,
+                                        float* acc) {
+    float x[kPlanePts], y[kPlanePts], z[kPlanePts];
+#pragma unroll
+    for (int k = 0; k < kPlanePts; ++k) {
+        x[k] = r[k];
+        y[k] = r[kPlanePts + k];
+        z[k] = r[2 * kPlanePts + k];
+    }
+    const unsigned meta = __float_as_uint(r[20]);
+    const Plane pl = fit_plane5(x, y, z, meta & 31u, (meta >> 5) & 1u);
+    const int qi = __float_as_int(r[19]);
+    centroid[3 * qi] = pl.cx; centroid[3 * qi + 1] = pl.cy;
+    centroid[3 * qi + 2] = pl.cz;
+    normal[3 * qi] = pl.nx; normal[3 * qi + 1] = pl.ny;
+    normal[3 * qi + 2] = pl.nz;
+    ok_out[qi] = pl.ok ? 1 : 0;
+    accumulate_row(pl, r[15], r[16], r[17], r[18], acc);
+}
+
+// K4's one-launch reduction: the block's partial sums (sum k of block b at
+// k * blocks + b); the last block to finish adds them all in a fixed order
+// (warp w takes sums w, w + W, ...: lane l adds blocks l, l + 32, ... in
+// turn, eight loads in flight at a time, then the warp's fixed tree) and
+// leaves the counter at zero for the next launch. Every thread of the
+// block calls it.
+__device__ __forceinline__ void k4_finish(const float* acc,
+                                          float (*s_acc)[kNSums],
+                                          float* partials, unsigned* counter,
+                                          float* jtj, float* jte,
+                                          int32_t* n_valid) {
+    __shared__ bool s_last;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nb = gridDim.x;
+    const float bsum = block_sums<kK4Warps>(acc, s_acc);
+    if (threadIdx.x < kNSums) partials[threadIdx.x * nb + blockIdx.x] = bsum;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    for (int k = warp; k < kNSums; k += kK4Warps) {
+        const float* row = partials + k * nb;
+        float part = 0.0f;
+        for (int b0 = lane; b0 < nb; b0 += 32 * 8) {
+            float v[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+                v[u] = b0 + 32 * u < nb ? __ldcg(row + b0 + 32 * u) : 0.0f;
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+                if (b0 + 32 * u < nb) part += v[u];
+        }
+        const float total = warp_sum(part);
+        if (lane == 0) expand_sum(k, total, jtj, jte, n_valid);
+    }
+    if (threadIdx.x == 0) *counter = 0u;
+}
+
+// Where a K4 warp spends its time, for tools/k4_breakdown.py: built with
+// -DLOAM_K4_CLOCKS, lane 0 of every warp adds SM clock cycles per segment
+// (the prologue, the waits at the top of each query, the copies issued, the
+// selection, the record and tail, the block's finish) into
+// k4_clocks[warp of the grid][kK4ClockSlots], with its SM and its start and
+// end on the global timer. The normal build has none of it.
+constexpr int kK4ClockSlots = 10;
+#ifdef LOAM_K4_CLOCKS
+__device__ long long* k4_clocks;
+#define K4_CLOCK_START(seg) long long k4c_##seg = clock64()
+#define K4_CLOCK_ADD(seg, slot) k4_acc[slot] += clock64() - k4c_##seg
+#else
+#define K4_CLOCK_START(seg)
+#define K4_CLOCK_ADD(seg, slot)
+#endif
+
+// K4: warp w of the grid's W walks queries w, w + W, ...; see the design
+// note at the top of this file.
+__global__ void __launch_bounds__(kK4Threads)
+fit_and_linearize_candidates_kernel(
+        const float* __restrict__ cand, const uint8_t* __restrict__ cand_ok,
+        int n_cand, int copy, const float* __restrict__ p_map,
+        const float* __restrict__ sqrt_r, const uint8_t* __restrict__ mask,
+        int n_q, float* __restrict__ centroid, float* __restrict__ normal,
+        uint8_t* __restrict__ ok_out, float* partials, unsigned* counter,
+        float* __restrict__ jtj, float* __restrict__ jte,
+        int32_t* __restrict__ n_valid) {
+    __shared__ __align__(16) float s_co[kK4Warps][2][kMaxCand * 3];
+    __shared__ __align__(16) uint8_t s_fl[kK4Warps][kK4FlagSlots][kMaxCand];
+    __shared__ float s_rec[kK4Warps][32 * kK4Rec];
+    __shared__ float s_acc[kK4Warps][kNSums];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int stride = gridDim.x * kK4Warps;
+    float* rec = s_rec[warp];
+#ifdef LOAM_K4_CLOCKS
+    long long k4_acc[kK4ClockSlots] = {0};
+    unsigned long long k4_t0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k4_t0));
+#endif
+    K4_CLOCK_START(prologue);
+
+    float acc[kNSums];
+#pragma unroll
+    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
+
+    // the warp's queries are gw + i stride, i = 0 .. n_mine - 1; their mask
+    // bits come 32 at a time, one load per lane, and a masked-out one gets
+    // the zero plane there (what the selection gives a query with no set
+    // flag) and needs no other load
+    const int gw = blockIdx.x * kK4Warps + warp;
+    const int n_mine = gw < n_q ? (n_q - gw + stride - 1) / stride : 0;
+    int chunk = -1;
+    unsigned bits = 0u;
+    // the next valid i from i0 on (n_mine when there is none); i0 only grows
+    auto next_valid = [&](int i0) {
+        while (i0 < n_mine) {
+            const int c = i0 >> 5;
+            if (c != chunk) {
+                const int i = (c << 5) + lane;
+                const int qi = gw + i * stride;
+                bool v = false;
+                if (i < n_mine) {
+                    v = mask[qi] != 0;
+                    if (!v) {
+                        centroid[3 * qi] = centroid[3 * qi + 1]
+                            = centroid[3 * qi + 2] = 0.0f;
+                        normal[3 * qi] = normal[3 * qi + 1]
+                            = normal[3 * qi + 2] = 0.0f;
+                        ok_out[qi] = 0;
+                    }
+                }
+                bits = __ballot_sync(0xffffffffu, v);
+                chunk = c;
+            }
+            const unsigned rest = bits & (0xffffffffu << (i0 & 31));
+            if (rest) return (c << 5) + __ffs(rest) - 1;
+            i0 = (c + 1) << 5;
+        }
+        return n_mine;
+    };
+    auto query = [&](int i) { return gw + i * stride; };
+
+    // prologue: flags of the first query, then its coordinates and the
+    // second one's flags. The warp's first query is valid as a rule (valid
+    // queries come first), so its flags are on their way while the mask
+    // bits come; where it is not, they are fetched again
+    if (gw < n_q) k4_stage_flags(cand_ok, gw, n_cand, copy, s_fl[warp][0], lane);
+    cp_async_commit();
+    int i_cur = next_valid(0);
+    int i_next = next_valid(i_cur + 1);
+    int j = i_cur < n_mine ? query(i_cur) : n_q;
+    int jn = i_next < n_mine ? query(i_next) : n_q;
+    cp_async_wait_all();
+    __syncwarp();
+    if (j < n_q && j != gw) {
+        k4_stage_flags(cand_ok, j, n_cand, copy, s_fl[warp][0], lane);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncwarp();
+    }
+    if (jn < n_q)
+        k4_stage_flags(cand_ok, jn, n_cand, copy, s_fl[warp][1], lane);
+    if (j < n_q)
+        k4_stage_coords(cand, j, n_cand, copy, s_fl[warp][0], s_co[warp][0],
+                        lane);
+    cp_async_commit();
+    // this query's and the next one's position and sqrt(r), loaded a query
+    // ahead
+    float qx = 0.f, qy = 0.f, qz = 0.f, qr = 0.f;
+    float nqx = 0.f, nqy = 0.f, nqz = 0.f, nqr = 0.f;
+    if (j < n_q) {
+        qx = __ldg(p_map + 3 * j); qy = __ldg(p_map + 3 * j + 1);
+        qz = __ldg(p_map + 3 * j + 2); qr = __ldg(sqrt_r + j);
+    }
+    if (jn < n_q) {
+        nqx = __ldg(p_map + 3 * jn); nqy = __ldg(p_map + 3 * jn + 1);
+        nqz = __ldg(p_map + 3 * jn + 2); nqr = __ldg(sqrt_r + jn);
+    }
+
+    int t = 0, n_rec = 0;
+    K4_CLOCK_ADD(prologue, 0);
+    while (j < n_q) {
+        const int i_nn = i_next < n_mine ? next_valid(i_next + 1) : n_mine;
+        const int jnn = i_nn < n_mine ? query(i_nn) : n_q;
+        // this query's coordinates and the next one's flags have landed
+        K4_CLOCK_START(wait);
+        cp_async_wait_all();
+        __syncwarp();
+        K4_CLOCK_ADD(wait, 1);
+        K4_CLOCK_START(stage);
+        if (jnn < n_q)
+            k4_stage_flags(cand_ok, jnn, n_cand, copy,
+                           s_fl[warp][(t + 2) % kK4FlagSlots], lane);
+        if (jn < n_q)
+            k4_stage_coords(cand, jn, n_cand, copy,
+                            s_fl[warp][(t + 1) % kK4FlagSlots],
+                            s_co[warp][(t + 1) & 1], lane);
+        cp_async_commit();
+        K4_CLOCK_ADD(stage, 2);
+
+        K4_CLOCK_START(select);
+        const StagedCand cd = {s_co[warp][t & 1], s_fl[warp][t % kK4FlagSlots]};
+        int sel[kPlanePts];
+        const bool gate = select5_any(cd, n_cand, true, qx, qy, qz, lane, sel);
+        K4_CLOCK_ADD(select, 3);
+        K4_CLOCK_START(record);
+        // the query's record for the tail: its selected points (0 where
+        // absent), the query, sqrt(r), its index and which points exist
+        float* r = rec + n_rec * kK4Rec;
+        if (lane < 3 * kPlanePts) {
+            const int k = lane % kPlanePts, axis = lane / kPlanePts;
+            const int sk = k == 0 ? sel[0] : k == 1 ? sel[1] : k == 2 ? sel[2]
+                         : k == 3 ? sel[3] : sel[4];
+            r[lane] = sk >= 0 ? cd.co[3 * sk + axis] : 0.0f;
+        } else if (lane == 15) {
+            r[15] = qx;
+        } else if (lane == 16) {
+            r[16] = qy;
+        } else if (lane == 17) {
+            r[17] = qz;
+        } else if (lane == 18) {
+            r[18] = qr;
+        } else if (lane == 19) {
+            r[19] = __int_as_float(j);
+        } else if (lane == 20) {
+            unsigned meta = gate ? 32u : 0u;
+#pragma unroll
+            for (int k = 0; k < kPlanePts; ++k)
+                if (sel[k] >= 0) meta |= 1u << k;
+            r[20] = __uint_as_float(meta);
+        }
+        if (++n_rec == 32) {
+            __syncwarp();
+            k4_tail(rec + lane * kK4Rec, centroid, normal, ok_out, acc);
+            n_rec = 0;
+        }
+        __syncwarp();   // the buffers of this query are free for the loads
+        j = jn;
+        jn = jnn;
+        i_next = i_nn;
+        qx = nqx; qy = nqy; qz = nqz; qr = nqr;
+        if (jn < n_q) {
+            nqx = __ldg(p_map + 3 * jn); nqy = __ldg(p_map + 3 * jn + 1);
+            nqz = __ldg(p_map + 3 * jn + 2); nqr = __ldg(sqrt_r + jn);
+        }
+        ++t;
+        K4_CLOCK_ADD(record, 4);
+    }
+    K4_CLOCK_START(tail);
+    __syncwarp();
+    if (lane < n_rec)
+        k4_tail(rec + lane * kK4Rec, centroid, normal, ok_out, acc);
+    __syncwarp();
+    K4_CLOCK_ADD(tail, 5);
+    K4_CLOCK_START(finish);
+
+    k4_finish(acc, s_acc, partials, counter, jtj, jte, n_valid);
+#ifdef LOAM_K4_CLOCKS
+    K4_CLOCK_ADD(finish, 6);
+    if (lane == 0) {
+        unsigned long long t1;
+        unsigned smid;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+        long long* out = k4_clocks
+            + (static_cast<long long>(blockIdx.x) * kK4Warps + warp)
+              * kK4ClockSlots;
+        for (int k = 0; k < 7; ++k) out[k] = k4_acc[k];
+        out[7] = static_cast<long long>(smid);
+        out[8] = static_cast<long long>(k4_t0);
+        out[9] = static_cast<long long>(t1);
+    }
+#endif
+}
+
+// Nothing at all, on one block of K4's size: the launch's floor, beside
+// which K4's device time is read.
+__global__ void __launch_bounds__(kK4Threads) empty_kernel() {}
+
 // K3's grid on the current device: one block per SM (0 on an error).
 int gn_loop_grid_cached() {
     static std::mutex mu;
@@ -904,27 +1459,40 @@ int loam_fit_and_linearize_merged(
     return static_cast<int>(cudaGetLastError());
 }
 
+// K4's grid: blocks of kK4Warps warps, each warp walking about
+// kK4QueriesPerWarp queries (at least one block).
+int loam_k4_blocks(int n_q) {
+    const int per_block = kK4Warps * kK4QueriesPerWarp;
+    const int nb = (n_q + per_block - 1) / per_block;
+    return nb > 0 ? nb : 1;
+}
+
 // K4: candidates (n_q, n_cand, 3) f32 and flags (n_q, n_cand) uint8, both
-// contiguous; outputs and partials (loam_k1_blocks(n_q) x 28) as for K1.
+// contiguous; partials hold loam_k4_blocks(n_q) x 28
+// floats and the counter one zeroed 32-bit word, which the launch leaves
+// at zero. One launch; the last block writes jtj, jte and n_valid.
 int loam_fit_and_linearize_candidates(
         const void* cand, const void* cand_ok, int n_cand, const void* p_map,
         const void* sqrt_r, const void* mask, int n_q, void* centroid,
-        void* normal, void* ok, void* partials, void* jtj, void* jte,
-        void* n_valid, void* stream) {
+        void* normal, void* ok, void* partials, void* counter, void* jtj,
+        void* jte, void* n_valid, void* stream) {
+    const int nb = loam_k4_blocks(n_q);
     if (n_cand < 1 || n_cand > kMaxCand)
         return static_cast<int>(cudaErrorInvalidValue);
+    const uintptr_t cp = reinterpret_cast<uintptr_t>(cand);
+    const uintptr_t fp = reinterpret_cast<uintptr_t>(cand_ok);
+    int copy = 0;
+    if (fp % 16 == 0 && n_cand % 16 == 0) copy |= kCopyFlags16;
+    else if (fp % 4 == 0 && n_cand % 4 == 0) copy |= kCopyFlags4;
+    if (cp % 16 == 0 && n_cand % 4 == 0) copy |= kCopyCoords16;
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = loam_k1_blocks(n_q);
-    fit_and_linearize_candidates_kernel<<<nb, kK1Warps * 32, 0, st>>>(
+    fit_and_linearize_candidates_kernel<<<nb, kK4Threads, 0, st>>>(
         static_cast<const float*>(cand), static_cast<const uint8_t*>(cand_ok),
-        n_cand, static_cast<const float*>(p_map),
+        n_cand, copy, static_cast<const float*>(p_map),
         static_cast<const float*>(sqrt_r), static_cast<const uint8_t*>(mask),
         n_q, static_cast<float*>(centroid), static_cast<float*>(normal),
-        static_cast<uint8_t*>(ok), static_cast<float*>(partials));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    reduce_partials_kernel<<<1, 32, 0, st>>>(
-        static_cast<const float*>(partials), nb, static_cast<float*>(jtj),
+        static_cast<uint8_t*>(ok), static_cast<float*>(partials),
+        static_cast<unsigned*>(counter), static_cast<float*>(jtj),
         static_cast<float*>(jte), static_cast<int32_t*>(n_valid));
     return static_cast<int>(cudaGetLastError());
 }
@@ -954,48 +1522,127 @@ int loam_gn_loop_grid() { return gn_loop_grid_cached(); }
 
 int loam_gn_loop_partial_stride() { return kPartStride; }
 
-// Dynamic shared memory K3 needs for n_q queries, in bytes.
-long long loam_gn_loop_smem(int n_q) {
+// Dynamic shared memory K3 needs for n_q queries on a target of `kind`
+// (0 merged map, 1 dense map, 2 sorted table), in bytes.
+long long loam_gn_loop_smem(int n_q, int kind) {
     const int grid = gn_loop_grid_cached();
     if (grid <= 0) return -1;
-    return static_cast<long long>(gn_loop_smem_bytes(n_q, grid));
+    int buf = MergedParams::kBufBytes, meta = MergedParams::kMetaInts;
+    if (kind == 1) { buf = DenseParams::kBufBytes; meta = DenseParams::kMetaInts; }
+    if (kind == 2) { buf = TableParams::kBufBytes; meta = TableParams::kMetaInts; }
+    return static_cast<long long>(gn_loop_smem_bytes(n_q, grid, buf, meta));
 }
 
-int loam_gn_loop(
-        const void* rows, int n_cand, const void* scale, const void* corner,
-        const void* grid_size, int gx, int gy, int gz, const void* src_xyz,
-        const void* mask, int n_q, const void* init_pose, int max_iters,
-        float degen_per_row, void* partials, void* counters, void* out,
-        void* stream) {
+}  // extern "C"
+
+namespace {
+
+// One cooperative launch of K3 on the source `prm`.
+template <class Params>
+int launch_gn_loop(Params prm, const void* src_xyz, const void* mask,
+                   int n_q, const void* init_pose, int max_iters,
+                   float degen_per_row, void* partials, void* counters,
+                   void* out, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     int n_blocks = gn_loop_grid_cached();
     if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-    size_t smem = gn_loop_smem_bytes(n_q, n_blocks);
+    size_t smem = gn_loop_smem_bytes(n_q, n_blocks, Params::kBufBytes,
+                                     Params::kMetaInts);
     if (smem > 48 * 1024) {   // above the default limit only on request
         cudaError_t err = cudaFuncSetAttribute(
-            gn_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            gn_loop_kernel<Params>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize,
             static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    const int16_t* rows_p = static_cast<const int16_t*>(rows);
-    const float* scale_p = static_cast<const float*>(scale);
-    const float* corner_p = static_cast<const float*>(corner);
-    const float* grid_p = static_cast<const float*>(grid_size);
     const float* src_p = static_cast<const float*>(src_xyz);
     const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
     const float* pose_p = static_cast<const float*>(init_pose);
     float* partials_p = static_cast<float*>(partials);
     unsigned* counters_p = static_cast<unsigned*>(counters);
     float* out_p = static_cast<float*>(out);
-    void* args[] = {&rows_p, &n_cand, &scale_p, &corner_p, &grid_p, &gx, &gy,
-                    &gz, &src_p, &mask_p, &n_q, &pose_p, &max_iters,
+    void* args[] = {&prm, &src_p, &mask_p, &n_q, &pose_p, &max_iters,
                     &degen_per_row, &partials_p, &counters_p, &out_p};
     // a cooperative launch is refused, not queued, when its grid cannot be
     // co-resident: the error comes back from this call
     cudaError_t err = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(gn_loop_kernel), dim3(n_blocks),
+        reinterpret_cast<void*>(gn_loop_kernel<Params>), dim3(n_blocks),
         dim3(kK3Threads), args, smem, st);
     if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// K3 on a merged map.
+int loam_gn_loop(
+        const void* rows, int n_cand, const void* scale, const void* corner,
+        const void* grid_size, int gx, int gy, int gz, const void* src_xyz,
+        const void* mask, int n_q, const void* init_pose, int max_iters,
+        float degen_per_row, void* partials, void* counters, void* out,
+        void* stream) {
+    const MergedParams prm = {
+        static_cast<const int16_t*>(rows), n_cand,
+        static_cast<const float*>(scale), static_cast<const float*>(corner),
+        static_cast<const float*>(grid_size), gx, gy, gz};
+    return launch_gn_loop(prm, src_xyz, mask, n_q, init_pose, max_iters,
+                          degen_per_row, partials, counters, out, stream);
+}
+
+// K3 on a dense map: slab (gx * gy * gz + 1, m * 3) f32, the last row the
+// all-padding sentinel; 8 m <= 256.
+int loam_gn_loop_dense(
+        const void* slab, int m, const void* corner, const void* grid_size,
+        int gx, int gy, int gz, const void* src_xyz, const void* mask,
+        int n_q, const void* init_pose, int max_iters, float degen_per_row,
+        void* partials, void* counters, void* out, void* stream) {
+    if (m < 1 || tg::kCornerCells * m > kMaxCand)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int vec16 = reinterpret_cast<uintptr_t>(slab) % 16 == 0
+                      && (12 * m) % 16 == 0;
+    const DenseParams prm = {
+        static_cast<const float*>(slab), m, static_cast<const float*>(corner),
+        static_cast<const float*>(grid_size), gx, gy, gz, vec16};
+    return launch_gn_loop(prm, src_xyz, mask, n_q, init_pose, max_iters,
+                          degen_per_row, partials, counters, out, stream);
+}
+
+// K3 on a sorted voxel table: keys (n_keys,) int32 ascending, slab
+// (n_keys, m, 3) f32, counts (n_keys,) int32; n_keys >= 1, 27 m <= 256.
+int loam_gn_loop_table(
+        const void* keys, int n_keys, const void* slab, const void* counts,
+        int m, const void* origin, const void* grid_size,
+        const void* src_xyz, const void* mask, int n_q, const void* init_pose,
+        int max_iters, float degen_per_row, void* partials, void* counters,
+        void* out, void* stream) {
+    if (n_keys < 1 || m < 1 || tg::kTableCells * m > kMaxCand)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int vec16 = reinterpret_cast<uintptr_t>(slab) % 16 == 0
+                      && (12 * m) % 16 == 0;
+    const TableParams prm = {
+        static_cast<const int32_t*>(keys), n_keys,
+        static_cast<const float*>(slab), static_cast<const int32_t*>(counts),
+        m, static_cast<const float*>(origin),
+        static_cast<const float*>(grid_size), vec16};
+    return launch_gn_loop(prm, src_xyz, mask, n_q, init_pose, max_iters,
+                          degen_per_row, partials, counters, out, stream);
+}
+
+#ifdef LOAM_K4_CLOCKS
+// Where K4's clock build writes: k4_blocks x kK4Warps x kK4ClockSlots
+// int64 (see k4_clocks).
+int loam_k4_set_clocks(void* buf) {
+    long long* p = static_cast<long long*>(buf);
+    return static_cast<int>(cudaMemcpyToSymbol(k4_clocks, &p, sizeof(p)));
+}
+#endif
+
+// One empty launch (a measurement aid: the device time of a launch that
+// does nothing).
+int loam_empty(void* stream) {
+    empty_kernel<<<1, kK4Threads, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -344,41 +344,70 @@ def ekf_replay_chunk(x: np.ndarray, P: np.ndarray, flags: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# the GN loop kernel's small step (csrc/gn_step.h), compiled for the host
+# the GN loop kernel's host-testable headers, compiled for the host: its
+# small step (csrc/gn_step.h) and its candidate index math
+# (csrc/target_gather.h)
 # ---------------------------------------------------------------------------
 
 GN_SRC = os.path.join(_PKG, "csrc", "gn_step_host.cpp")
 GN_HEADER = os.path.join(_PKG, "csrc", "gn_step.h")
-_gn_lib: Optional[ctypes.CDLL] = None
+TG_SRC = os.path.join(_PKG, "csrc", "target_gather_host.cpp")
+TG_HEADER = os.path.join(_PKG, "csrc", "target_gather.h")
+_kernel_libs: dict = {}
+
+
+def _kernel_host_lib(name: str, src: str, header: str, bind) -> ctypes.CDLL:
+    """``src`` (which includes ``header``) built with g++ into the build dir
+    under a name keyed by both files' hash, loaded and bound by ``bind``."""
+    with _lock:
+        lib = _kernel_libs.get(name)
+        if lib is not None:
+            return lib
+        h = hashlib.sha256()
+        for path in (src, header):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+        if not os.path.isfile(out):
+            # no multiply-add contraction, as the kernels' -fmad=false
+            why = _build(out, src, ("-ffp-contract=off",))
+            if why:
+                raise RuntimeError(f"{name} host build failed: {why}")
+        lib = ctypes.CDLL(out)
+        bind(lib)
+        _kernel_libs[name] = lib
+        return lib
+
+
+def _bind_gn(lib: ctypes.CDLL) -> None:
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.gn_step_host.restype = ctypes.c_int
+    lib.gn_step_host.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_float,
+                                 f32p, f32p, ctypes.c_float, f32p, f32p, f32p]
+    lib.gn_finish_host.restype = None
+    lib.gn_finish_host.argtypes = [f32p, f32p]
+    lib.gn_jacobi_eig6_host.restype = None
+    lib.gn_jacobi_eig6_host.argtypes = [f32p, f32p, f32p]
+
+
+def _bind_tg(lib: ctypes.CDLL) -> None:
+    f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+    ci = ctypes.c_int
+    lib.tg_corner_rows.restype = None
+    lib.tg_corner_rows.argtypes = [f32p, u8p, ci, f32p, ctypes.c_float, ci,
+                                   ci, ci, ctypes.POINTER(ctypes.c_int64)]
+    lib.tg_table_rows.restype = None
+    lib.tg_table_rows.argtypes = [f32p, u8p, ci, f32p, ctypes.c_float,
+                                  ctypes.POINTER(ctypes.c_int32), ci,
+                                  ctypes.POINTER(ctypes.c_int32), u8p]
 
 
 def _gn_load() -> ctypes.CDLL:
-    global _gn_lib
-    with _lock:
-        if _gn_lib is not None:
-            return _gn_lib
-        h = hashlib.sha256()
-        for path in (GN_SRC, GN_HEADER):
-            with open(path, "rb") as f:
-                h.update(f.read())
-        out = os.path.join(BUILD_DIR, f"libgnstep_{h.hexdigest()[:16]}.so")
-        if not os.path.isfile(out):
-            # no multiply-add contraction, as the kernels' -fmad=false
-            why = _build(out, GN_SRC, ("-ffp-contract=off",))
-            if why:
-                raise RuntimeError(f"gn_step host build failed: {why}")
-        lib = ctypes.CDLL(out)
-        f32p = ctypes.POINTER(ctypes.c_float)
-        lib.gn_step_host.restype = ctypes.c_int
-        lib.gn_step_host.argtypes = [f32p, f32p, ctypes.c_int, ctypes.c_float,
-                                     f32p, f32p, ctypes.c_float, f32p, f32p,
-                                     f32p]
-        lib.gn_finish_host.restype = None
-        lib.gn_finish_host.argtypes = [f32p, f32p]
-        lib.gn_jacobi_eig6_host.restype = None
-        lib.gn_jacobi_eig6_host.argtypes = [f32p, f32p, f32p]
-        _gn_lib = lib
-        return lib
+    return _kernel_host_lib("gnstep", GN_SRC, GN_HEADER, _bind_gn)
+
+
+def _tg_load() -> ctypes.CDLL:
+    return _kernel_host_lib("targetgather", TG_SRC, TG_HEADER, _bind_tg)
 
 
 def gn_step(jtj: np.ndarray, jte: np.ndarray, n_valid: int,
@@ -421,3 +450,43 @@ def jacobi_eig6(a: np.ndarray):
     v = np.empty(36, np.float32)
     lib.gn_jacobi_eig6_host(_fp(a), _fp(w), _fp(v))
     return w, v.reshape(6, 6)
+
+
+def _u8(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.uint8)
+
+
+def corner_rows(q: np.ndarray, mask: np.ndarray, corner: np.ndarray,
+                grid: float, dims) -> np.ndarray:
+    """Rows of the 8 corner-block cells of each query, x outermost, as the
+    kernel ``loam_gn_loop`` finds them in a dense map (``csrc/
+    target_gather.h``): (Q, 8) int64, the sentinel row gx * gy * gz for a
+    masked-out query or a cell outside the window."""
+    lib = _tg_load()
+    q, mask = _f32c(q).reshape(-1, 3), _u8(mask)
+    out = np.empty((len(q), 8), np.int64)
+    gx, gy, gz = (int(d) for d in dims)
+    lib.tg_corner_rows(_fp(q), mask.ctypes.data_as(ctypes.POINTER(
+        ctypes.c_uint8)), len(q), _fp(_f32c(corner)), ctypes.c_float(grid),
+        gx, gy, gz, _i64p(out))
+    return out
+
+
+def table_rows(q: np.ndarray, mask: np.ndarray, origin: np.ndarray,
+               grid: float, keys: np.ndarray):
+    """Rows and found flags of the 27 cells of each query, as the kernel
+    ``loam_gn_loop`` finds them in a sorted voxel table (``csrc/
+    target_gather.h``): ((Q, 27) int32, (Q, 27) bool)."""
+    lib = _tg_load()
+    q, mask = _f32c(q).reshape(-1, 3), _u8(mask)
+    keys = np.ascontiguousarray(keys, dtype=np.int32)
+    if len(keys) < 1:
+        raise ValueError("table_rows: the table has no row")
+    idx = np.empty((len(q), 27), np.int32)
+    found = np.empty((len(q), 27), np.uint8)
+    i32p, u8p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8)
+    lib.tg_table_rows(_fp(q), mask.ctypes.data_as(u8p), len(q),
+                      _fp(_f32c(origin)), ctypes.c_float(grid),
+                      keys.ctypes.data_as(i32p), len(keys),
+                      idx.ctypes.data_as(i32p), found.ctypes.data_as(u8p))
+    return idx, found.astype(bool)

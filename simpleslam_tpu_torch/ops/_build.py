@@ -65,6 +65,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.loam_k1_blocks.restype = ci
     lib.loam_k2_blocks.argtypes = [ci]
     lib.loam_k2_blocks.restype = ci
+    lib.loam_k4_blocks.argtypes = [ci]
+    lib.loam_k4_blocks.restype = ci
     lib.loam_max_candidates.argtypes = []
     lib.loam_max_candidates.restype = ci
     lib.loam_fit_and_linearize_merged.argtypes = [
@@ -72,7 +74,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, vp, vp]
     lib.loam_fit_and_linearize_merged.restype = ci
     lib.loam_fit_and_linearize_candidates.argtypes = [
-        vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp]
+        vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.loam_fit_and_linearize_candidates.restype = ci
     lib.loam_plane_normal_equations.argtypes = [
         vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
@@ -81,12 +83,22 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.loam_gn_loop_grid.restype = ci
     lib.loam_gn_loop_partial_stride.argtypes = []
     lib.loam_gn_loop_partial_stride.restype = ci
-    lib.loam_gn_loop_smem.argtypes = [ci]
+    lib.loam_gn_loop_smem.argtypes = [ci, ci]
     lib.loam_gn_loop_smem.restype = ctypes.c_longlong
     lib.loam_gn_loop.argtypes = [
         vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, ctypes.c_float,
         vp, vp, vp, vp]
     lib.loam_gn_loop.restype = ci
+    lib.loam_gn_loop_dense.argtypes = [
+        vp, ci, vp, vp, ci, ci, ci, vp, vp, ci, vp, ci, ctypes.c_float, vp,
+        vp, vp, vp]
+    lib.loam_gn_loop_dense.restype = ci
+    lib.loam_gn_loop_table.argtypes = [
+        vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, ci, ctypes.c_float, vp,
+        vp, vp, vp]
+    lib.loam_gn_loop_table.restype = ci
+    lib.loam_empty.argtypes = [vp]
+    lib.loam_empty.restype = ci
     lib.loam_barrier_probe.argtypes = [vp, ci, vp]
     lib.loam_barrier_probe.restype = ci
 

@@ -10,9 +10,20 @@ solves, all as elementwise math. The CUDA kernel ``fit_and_linearize_merged``
 from __future__ import annotations
 
 import math
-from typing import Tuple
+import operator
+from typing import Callable, Tuple
 
 import torch
+
+
+def div_const(x: torch.Tensor, value: float) -> torch.Tensor:
+    """``x / value`` as a true division on every device. PyTorch's CUDA
+    division by a Python number multiplies by its reciprocal instead, which
+    rounds apart from the CPU's division and from the CUDA kernels' (x / 3
+    and x * (1 / 3) differ in the last bit for about half of all x); a
+    0-dim tensor filled on the device, on the caller's stream, divides.
+    The LOAM plane fit's plain version uses it, to round as its kernels do."""
+    return x / torch.full((), float(value), dtype=x.dtype, device=x.device)
 
 
 def solve3x3(A: torch.Tensor, b: torch.Tensor
@@ -45,13 +56,18 @@ def solve3x3(A: torch.Tensor, b: torch.Tensor
 
 def symeig3x3_values(M: torch.Tensor) -> torch.Tensor:
     """Eigenvalues of symmetric (..., 3, 3), ascending — trigonometric form."""
+    return _symeig3x3_values(M, operator.truediv)
+
+
+def _symeig3x3_values(M: torch.Tensor, div: Callable) -> torch.Tensor:
+    """``symeig3x3_values`` with its divisions by constants done by ``div``."""
     m00, m11, m22 = M[..., 0, 0], M[..., 1, 1], M[..., 2, 2]
     m01, m02, m12 = M[..., 0, 1], M[..., 0, 2], M[..., 1, 2]
     p1 = m01 * m01 + m02 * m02 + m12 * m12
-    q = (m00 + m11 + m22) / 3.0
+    q = div(m00 + m11 + m22, 3.0)
     p2 = (m00 - q) ** 2 + (m11 - q) ** 2 + (m22 - q) ** 2 + 2.0 * p1
     diag_case = p2 <= 1e-24
-    p = torch.sqrt(torch.where(diag_case, torch.ones_like(p2), p2) / 6.0)
+    p = torch.sqrt(div(torch.where(diag_case, torch.ones_like(p2), p2), 6.0))
     # B = (M - qI)/p; r = det(B)/2
     b00, b11, b22 = (m00 - q) / p, (m11 - q) / p, (m22 - q) / p
     b01, b02, b12 = m01 / p, m02 / p, m12 / p
@@ -60,8 +76,8 @@ def symeig3x3_values(M: torch.Tensor) -> torch.Tensor:
         - b01 * (b01 * b22 - b12 * b02)
         + b02 * (b01 * b12 - b11 * b02)
     )
-    r = torch.clamp(detB / 2.0, -1.0, 1.0)
-    phi = torch.arccos(r) / 3.0
+    r = torch.clamp(div(detB, 2.0), -1.0, 1.0)
+    phi = div(torch.arccos(r), 3.0)
     e_hi = q + 2.0 * p * torch.cos(phi)
     e_lo = q + 2.0 * p * torch.cos(phi + 2.0 * math.pi / 3.0)
     e_mid = 3.0 * q - e_hi - e_lo
@@ -108,8 +124,9 @@ def _eigvec_for(M: torch.Tensor, lam_a: torch.Tensor,
 
 
 def symeig3x3_smallest(M: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(eigenvalues ascending (..., 3), unit eigenvector of the smallest)."""
-    lam = symeig3x3_values(M)
+    """(eigenvalues ascending (..., 3), unit eigenvector of the smallest);
+    the LOAM plane fit's, so its constant divisions are ``div_const``'s."""
+    lam = _symeig3x3_values(M, div_const)
     return lam, _eigvec_for(M, lam[..., 1], lam[..., 2])
 
 

@@ -17,13 +17,13 @@ merged dense map (one int16 row per query, the production target), the
 dense map (corner-selected 2x2x2 gather, 8 rows per query) and the sorted
 voxel table (27-cell key search, the compact target of the sharded path).
 
-On CUDA tensors the GN loop against a merged map is one launch of the
-kernel K3 (``loam_kernels.gn_loop_fused``); its plain version
-``gn_loop_stepwise`` is the same loop driven from Python through the
-linearization kernels (their plain versions for CPU tensors): K1 on a
-merged map, the torch gather plus K4 on the other two targets, and K2
-against the frozen planes in between. The functions below
-(``fit_planes``, ``plane_normal_equations``,
+On CUDA tensors the GN loop against any of the three targets is one launch
+of the kernel K3 (``loam_kernels.gn_loop_fused``), as the reference runs it
+as one ``lax.while_loop``; its plain version ``gn_loop_stepwise`` is the
+same loop driven from Python through the linearization kernels (their
+plain versions for CPU tensors): K1 on a merged map, the torch gather plus
+K4 on the other two targets, and K2 against the frozen planes in between.
+The functions below (``fit_planes``, ``plane_normal_equations``,
 ``normal_equations_from_candidates``) are the same math on an explicit
 candidate tensor, as the reference package states it.
 """
@@ -35,7 +35,7 @@ from typing import NamedTuple, Union
 import torch
 
 from . import geometry as geo
-from .linalg3 import symeig3x3_smallest
+from .linalg3 import div_const, symeig3x3_smallest
 from .pointcloud import PointCloud
 from .voxel import (DenseVoxelMap, MergedDenseVoxelMap, VoxelMap,
                     gather_neighbors, gather_neighbors_corner,
@@ -128,7 +128,7 @@ def fit_planes_at(p_map: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
     total = torch.zeros_like(pts[:, 0])
     for k in range(PLANE_PTS):
         total = total + pts[:, k]
-    centroid = total / PLANE_PTS
+    centroid = div_const(total, PLANE_PTS)
     b = torch.where(has[..., None], pts - centroid[:, None, :],
                     torch.zeros_like(pts))
     M = torch.zeros(b.shape[0], 3, 3, dtype=b.dtype, device=b.device)
@@ -230,8 +230,7 @@ def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
 def gn_loop_stepwise(src: PointCloud, vm: Target,
                      init_pose: torch.Tensor, max_iters: int = MAX_ITERS,
                      degen_per_row: float = 0.0) -> LoamResult:
-    """The GN loop driven from Python: the plain version of the kernel K3,
-    and the loop itself for a dense or sorted-table target.
+    """The GN loop driven from Python: the plain version of the kernel K3.
 
     At the start pose and on every refresh the plane set is fitted and
     linearized in one pass: K1 (``fit_and_linearize_merged``) on a merged
@@ -242,13 +241,14 @@ def gn_loop_stepwise(src: PointCloud, vm: Target,
     pose in the same iteration.
 
     One host read per iteration decides the loop (converged, starved, moved
-    past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors, and on
-    CUDA tensors for the targets K3 does not read.
+    past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors; on
+    CUDA tensors it is counted in ``K3_PLAIN_CUDA_CALLS``, which the main
+    paths keep at zero.
     """
     from . import loam_kernels as lk
 
     merged = isinstance(vm, MergedDenseVoxelMap)
-    if init_pose.is_cuda and merged:
+    if init_pose.is_cuda:
         lk.K3_PLAIN_CUDA_CALLS += 1
 
     def fit_and_linearize(p_map):
@@ -302,14 +302,13 @@ def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
             degen_per_row: float = 0.0) -> LoamResult:
     """The full GN loop (reference ``LoamRegister::scan2Map``).
 
-    On CUDA tensors the whole loop against a merged map is one launch of K3
-    (``loam_kernels.gn_loop_fused``), with no host read; a failed build or
-    launch raises. A dense or sorted-table target runs ``gn_loop_stepwise``
-    on either device (on CUDA: K4 per gather, K2 per other iteration, one
-    host read per iteration). On CPU tensors a merged map runs it too, as
-    K3's plain version.
+    On CUDA tensors the whole loop is one launch of K3
+    (``loam_kernels.gn_loop_fused``) on any of the three targets, with no
+    host read; a failed build or launch, or a target the kernel cannot
+    take, raises. On CPU tensors it is K3's plain version
+    ``gn_loop_stepwise``.
     """
-    if not (init_pose.is_cuda and isinstance(vm, MergedDenseVoxelMap)):
+    if not init_pose.is_cuda:
         return gn_loop_stepwise(src, vm, init_pose, max_iters, degen_per_row)
     from . import loam_kernels as lk
 

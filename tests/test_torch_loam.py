@@ -536,6 +536,31 @@ def test_kernels_match_plain(cuda_scene, which):
     _assert_close([t.cpu() for t in k2], [t.cpu() for t in p2])
 
 
+def _to(vm, dev):
+    return type(vm)(*(t.to(dev) if isinstance(t, torch.Tensor) else t
+                      for t in vm))
+
+
+def _assert_k4_matches_plain(cand, ok, p_map, sqrt_r, mask):
+    """K4 against its plain version: n_valid and the plane set
+    bit-identical, the sums at the op tolerances, two launches
+    bit-identical."""
+    k4 = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, mask)
+    p4 = lk.fit_and_linearize_candidates_plain(cand, ok, p_map, sqrt_r, mask)
+    assert int(k4[2]) == int(p4[2])
+    for a, b in zip(k4[3], p4[3]):
+        assert torch.equal(a, b)
+    JtJ, JtE = p4[0].cpu().numpy(), p4[1].cpu().numpy()
+    np.testing.assert_allclose(k4[0].cpu().numpy(), JtJ,
+                               atol=2e-5 * np.abs(JtJ).max())
+    np.testing.assert_allclose(k4[1].cpu().numpy(), JtE,
+                               atol=5e-4 * (np.abs(JtE).max() + 1e-9))
+    again = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, mask)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (*k4[:3], *k4[3]), (*again[:3], *again[3])))
+    return int(p4[2])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["dense", "table"])
 def test_candidate_kernel_matches_plain(cuda_scene, other_targets, kind):
@@ -543,26 +568,80 @@ def test_candidate_kernel_matches_plain(cuda_scene, other_targets, kind):
     table's candidates; two launches bit-identical; its planes feed K2."""
     _, src, pose = cuda_scene
     dev = pose.device
-    tvm = type(other_targets[kind][1])(*(
-        t.to(dev) if isinstance(t, torch.Tensor) else t
-        for t in other_targets[kind][1]))
+    tvm = _to(other_targets[kind][1], dev)
     pose = pose.clone()
     pose[:3, 3] += torch.tensor(OFFSET, device=dev)
     p_map = tgeo.transform_points(pose, src.xyz)
     sqrt_r = tloam.source_sqrt_range(src)
     cand, ok = tloam.gather_candidates_at(tvm, p_map, src.mask)
-    k4 = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, src.mask)
-    p4 = lk.fit_and_linearize_candidates_plain(cand, ok, p_map, sqrt_r,
-                                               src.mask)
-    _assert_close([t.cpu() for t in k4[:3]], [t.cpu() for t in p4[:3]])
-    assert torch.equal(k4[3].ok, p4[3].ok)
-    again = lk.fit_and_linearize_candidates(cand, ok, p_map, sqrt_r, src.mask)
-    assert all(torch.equal(a, b) for a, b in zip(k4[:3], again[:3]))
+    assert _assert_k4_matches_plain(cand, ok, p_map, sqrt_r, src.mask) > 30
     wide = torch.zeros((8, 257, 3), device=dev)
     with pytest.raises(ValueError, match="candidates per query"):
         lk.fit_and_linearize_candidates(
             wide, wide[..., 0].bool(), p_map[:8].contiguous(), sqrt_r[:8],
             src.mask[:8])
+
+
+def _planar_candidates(n_cand: int, flags: str, n_q: int = 600):
+    """Candidates near a plane through each of ``n_q`` queries, made with
+    numpy from a seed: (cand (Q, C, 3), flags (Q, C), queries (Q, 3), mask
+    (Q,)). ``flags``: "random" (a masked-out query's flags off, as every
+    gather leaves them), "masked-set" (its flags set as well), "all-off",
+    or "all-masked" (every query masked out, every flag off)."""
+    rng = np.random.default_rng(n_cand)
+    q = rng.uniform(-20, 20, (n_q, 3)).astype(np.float32)
+    off = np.concatenate([rng.uniform(-0.7, 0.7, (n_q, n_cand, 2)),
+                          rng.uniform(0, 0.002, (n_q, n_cand, 1))], axis=-1)
+    mask = rng.random(n_q) > 0.1
+    ok = rng.random((n_q, n_cand)) > 0.3
+    if flags == "random":
+        ok &= mask[:, None]
+    elif flags != "masked-set":
+        ok[:] = False
+    if flags == "all-masked":
+        mask[:] = False
+    return (q[:, None, :] + off).astype(np.float32), ok, q, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", ["random", "masked-set", "all-off",
+                                   "all-masked"])
+@pytest.mark.parametrize("n_cand", [1, 7, 192, 216, 256])
+def test_candidate_kernel_widths(cuda_scene, n_cand, flags):
+    """K4 at every copy path it has (1-byte flags and 4-byte coordinates at
+    C = 1 and 7, 4-byte flags at 216, 16-byte chunks at 192 and 256), with
+    set flags on masked-out queries (which neither side reads), every flag
+    off, and every query masked out."""
+    dev = cuda_scene[2].device
+    cand, ok, q, mask = _planar_candidates(n_cand, flags)
+    p_map = torch.tensor(q, device=dev)
+    sqrt_r = torch.sqrt(torch.clamp(torch.linalg.norm(p_map, dim=1), min=1e-6))
+    n_valid = _assert_k4_matches_plain(
+        torch.tensor(cand, device=dev), torch.tensor(ok, device=dev), p_map,
+        sqrt_r, torch.tensor(mask, device=dev))
+    if flags in ("random", "masked-set") and n_cand >= 32:
+        assert n_valid > 100
+
+
+@pytest.mark.parametrize("n_cand", [7, 192])
+def test_candidate_plain_ignores_masked_flags(n_cand):
+    """K4's plain version (what its wrapper runs on CPU tensors) gives a
+    masked-out query the zero plane whatever its flags hold, as the kernel
+    does, and the same sums as with those flags cleared."""
+    cand, ok, q, mask = _planar_candidates(n_cand, "masked-set")
+    p_map = torch.tensor(q)
+    sqrt_r = torch.sqrt(torch.clamp(torch.linalg.norm(p_map, dim=1), min=1e-6))
+    args = (torch.tensor(cand), p_map, sqrt_r, torch.tensor(mask))
+    got = lk.fit_and_linearize_candidates(args[0], torch.tensor(ok), *args[1:])
+    ref = lk.fit_and_linearize_candidates(
+        args[0], torch.tensor(ok & mask[:, None]), *args[1:])
+    assert (ok & ~mask[:, None]).any()
+    for a, b in zip((*got[:3], *got[3]), (*ref[:3], *ref[3])):
+        assert torch.equal(a, b)
+    planes = got[3]
+    assert not planes.ok[~torch.tensor(mask)].any()
+    assert not planes.centroid[~torch.tensor(mask)].any()
+    assert int(got[2]) > 100
 
 
 def test_wrappers_refuse_bad_inputs(scene):
@@ -584,6 +663,34 @@ def test_wrappers_refuse_bad_inputs(scene):
             meta[:, 0], meta[:, 0].bool())
 
 
+def test_fused_loop_refuses_what_the_kernel_cannot_take(scene,
+                                                        other_targets):
+    """K3 takes the three LOAM targets up to 256 candidates per query and a
+    table with a row; it refuses anything else before it looks at the
+    device, and a CPU tensor after (its plain version is the stepwise
+    loop)."""
+    _, _, tds, tvm, pose = scene
+    start = torch.tensor(pose)
+    for vm in (tvm, other_targets["dense"][1], other_targets["table"][1]):
+        with pytest.raises(ValueError, match="unsupported device"):
+            lk.gn_loop_fused(tds.xyz, tds.mask, vm, start, 8, 0.0)
+    with pytest.raises(TypeError, match="not a LOAM target"):
+        lk.gn_loop_fused(tds.xyz, tds.mask, object(), start, 8, 0.0)
+    table = other_targets["table"][1]
+    empty = tvox.VoxelMap(table.keys[:0], table.slab[:0], table.counts[:0],
+                          table.origin, table.grid)
+    with pytest.raises(ValueError, match="no row"):
+        lk.gn_loop_fused(tds.xyz, tds.mask, empty, start, 8, 0.0)
+    wide = tvox.VoxelMap(table.keys, torch.zeros((table.keys.shape[0], 10, 3)),
+                         table.counts, table.origin, table.grid)
+    with pytest.raises(ValueError, match="270 candidates per query"):
+        lk.gn_loop_fused(tds.xyz, tds.mask, wide, start, 8, 0.0)
+    dense = other_targets["dense"][1]
+    wide = dense._replace(slab_pts=33)
+    with pytest.raises(ValueError, match="264 candidates per query"):
+        lk.gn_loop_fused(tds.xyz, tds.mask, wide, start, 8, 0.0)
+
+
 def _rot_angle(Ra, Rb):
     dR = Ra.astype(np.float64).T @ Rb.astype(np.float64)
     return 0.5 * np.linalg.norm([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0],
@@ -594,18 +701,26 @@ def _rot_angle(Ra, Rb):
 @pytest.mark.parametrize("degen", [0.0, tloam.DEGEN_EIGEN_PER_ROW],
                          ids=["plain-solve", "degeneracy-guard"])
 @pytest.mark.parametrize("which", ["on-pose", "perturbed"])
-def test_fused_loop_matches_stepwise(cuda_scene, which, degen):
-    """K3 against its plain version on the card: the same counts, the pose
-    within 1e-4 m and 1e-5 rad, and bit-identical across two launches."""
+@pytest.mark.parametrize("target", ["merged", "dense", "table"])
+def test_fused_loop_matches_stepwise(cuda_scene, other_targets, target,
+                                     which, degen):
+    """K3 against its plain version on the card, on each of the three
+    targets: the same counts, the pose within 1e-4 m and 1e-5 rad, and
+    bit-identical across two launches; the stepwise loop is counted as a
+    plain call on every target."""
     vm, src, pose = cuda_scene
+    if target != "merged":
+        vm = _to(other_targets[target][1], pose.device)
     if which == "perturbed":
         pose = pose.clone()
         pose[:3, 3] += torch.tensor(OFFSET, device=pose.device)
-    before = lk.K3_LAUNCHES
+    before = (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS, lk.K4_LAUNCHES)
     got = tloam.gn_loop(src, vm, pose, degen_per_row=degen)
     again = tloam.gn_loop(src, vm, pose, degen_per_row=degen)
-    assert lk.K3_LAUNCHES == before + 2
+    assert (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS, lk.K4_LAUNCHES) == (
+        before[0] + 2, before[1], before[2])
     ref = tloam.gn_loop_stepwise(src, vm, pose, degen_per_row=degen)
+    assert lk.K3_PLAIN_CUDA_CALLS == before[1] + 1
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert (int(got.iters), int(got.n_gathers), int(got.n_valid),
             bool(got.converged)) == (int(ref.iters), int(ref.n_gathers),
