@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--scans N] [--kernels-only] [--only PATHS]
 
-Drives ``simpleslam_tpu_torch`` (never jax) through seventeen phases and
+Drives ``simpleslam_tpu_torch`` (never jax) through eighteen phases and
 fails with a nonzero exit on the first problem:
 
 1. environment: card name and power limit (nvidia-smi), torch / CUDA
@@ -91,18 +91,44 @@ fails with a nonzero exit on the first problem:
    of the batch against the card's peaks (no share above 1);
 16. ``memcheck`` on the card, 4 segments of 48 scans: its JSON, ``ok``
    required;
-17. the result: a JSON line of the kernels K1-K4 (with the launches of each
+17. the mesh path (``parallel/``, after every other phase): ranks are
+   processes; with a card per rank (``chiprun --chips 4``) each takes its
+   own and the ranks use NCCL, else they share this card in a gloo group
+   (NCCL refuses two ranks on one GPU), so none of its times is a scaling
+   number; the ranks' backend must be the rule's. Sharded
+   registration on the streamed full path's inputs (its last merged map,
+   the same submap as a dense map and a sorted table, its last scan from
+   the 0.25 m offset) on 1 rank (here), 2 and 4 ranks: one rank sets no
+   hook and is bit-identical to the unsharded ``gn_loop`` (one K3 launch);
+   more are within 1e-4 m and 1e-6 rad of the unsharded
+   ``gn_loop_stepwise`` with equal iterations and gathers, every rank and
+   two runs bit-identical, K1 (merged) or K4 (dense, table) and K2
+   launched, K3, the plain versions and the unsharded stepwise loop not;
+   K1, K2 and K4 against their plain versions on rank 1's block; the NDT
+   and VGICP sharded batches (2 ranks, pose rows within 5e-3 of the
+   one-rank batch); the sharded pose-graph solve in its three modes on a
+   256-node ring (cost falls, poses within 1e-3 m of the one-rank PCG
+   solve); the streamed pipeline on 2 ranks in the bench ``full`` config
+   (150 scans) and the courtyard loop, each held to the single-rank K3
+   run of phase 4 or 7 (every registration within phase 3's bounds of K3
+   on its own inputs, the same keyframes and closures, ATE within section
+   2's limits, every rank and two runs bit-identical, the backend's counts
+   equal on every rank; the per-scan gap is printed with the registration
+   where it opens, ROADMAP F6); scans/s, collectives per scan and their ms,
+   and the host-staged copies of the collectives, beside the card;
+18. the result: a JSON line of the kernels K1-K4 (with the launches of each
    path: K3's launches, for K1 and K2 the times their bodies ran as phases
    of K3, from the recorded gathers and iterations, the K1 phases of the
    ``scan2map`` paths of 13 reading the dense map's or the table's
-   candidates; for K4 its own launches, 0 on every path: it serves K3's
-   plain version; K3's times and bounds on those targets), the nvidia-smi
-   line, and last a JSON line ``{"ok": true, "device": ...}``.
+   candidates, and the standalone launches of the mesh path; for K4 its
+   own launches, on the mesh path's dense and table registrations; K3's
+   times and bounds on those targets), the nvidia-smi line, and last a
+   JSON line ``{"ok": true, "device": ...}``.
 
-``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck`` (any subset)
-drives just the named paths of 8-16 after the build (a quick check while
-working on one of them; ``k4`` and ``recorded`` run the streamed full config
-first, for its inputs) and prints no result line.
+``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,mesh`` (any
+subset) drives just the named paths of 8-17 after the build (a quick check
+while working on one of them; ``k4``, ``recorded`` and ``mesh`` run the
+streamed full config first, for its inputs) and prints no result line.
 """
 
 from __future__ import annotations
@@ -289,18 +315,23 @@ def device_activity(prof):
 
 class GnRecorder:
     """Observes ``loam.gn_loop`` during a run: keeps every registration's
-    iteration and gather counts on the device and reads them once at the
-    end. ``k1_phases`` / ``k2_phases`` are the times K1's and K2's bodies
-    ran inside K3."""
+    iteration and gather counts, start and result on the device and reads
+    them once at the end. ``k1_phases`` / ``k2_phases`` are the times K1's
+    and K2's bodies ran inside K3; ``records`` is (starts, results,
+    iterations, gathers) per registration."""
 
     def __enter__(self):
         from simpleslam_tpu_torch.ops import loam
 
         self._loam, self._orig, self._rows = loam, loam.gn_loop, []
+        self._poses = []
 
         def recording(*args, **kwargs):
             res = self._orig(*args, **kwargs)
             self._rows.append(torch.stack([res.iters, res.n_gathers]))
+            start = args[2] if len(args) > 2 else kwargs["init_pose"]
+            self._poses.append(torch.stack([start.to(torch.float32),
+                                            res.pose]))
             return res
 
         loam.gn_loop = recording
@@ -310,9 +341,12 @@ class GnRecorder:
         self._loam.gn_loop = self._orig
         counts = (torch.stack(self._rows).cpu().numpy() if self._rows
                   else np.zeros((0, 2), np.int64))
+        poses = (torch.stack(self._poses).cpu().numpy().astype(np.float64)
+                 if self._poses else np.zeros((0, 2, 4, 4)))
         self.n_reg = len(counts)
         self.k1_phases = int(counts[:, 1].sum())
         self.k2_phases = int((counts[:, 0] - counts[:, 1]).sum())
+        self.records = (poses[:, 0], poses[:, 1], counts[:, 0], counts[:, 1])
         return False
 
 
@@ -877,6 +911,7 @@ def streamed_run(name: str, cfg: dict, streams, card: str, ate_before=None,
         result = run_streamed(system, streams, sync_every=sync_every)
         torch.cuda.synchronize()
     launches = launch_counts(rec)
+    result.extras["gn_records"] = rec.records
     n = len(streams.scan_stamps)
     ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
     report_streamed(name, result, n, ate, launches, card, ate_before)
@@ -1019,9 +1054,7 @@ def loop_closure_run(card: str):
 
     phase("loop closure (courtyard, sync_backend, twice)")
     t0 = time.perf_counter()
-    streams = sim.simulate_sequence(
-        make_courtyard(sim, LC_RADIUS, seed=0), n_scans=LC_SCANS, seed=2,
-        radius=LC_RADIUS, speed=LC_SPEED, n_az=720, n_el=12, scan_noise=0.03)
+    streams = courtyard_streams()
     print(f"simulated {LC_SCANS} scans in {time.perf_counter() - t0:.1f} s "
           "(host numpy, not part of the path)")
     runs = []
@@ -1079,6 +1112,10 @@ def loop_closure_run(card: str):
         if rep == 0:
             batch_probe(name, system, streams, result, 16, card)
         runs.append((result.poses, launches))
+        if rep == 0:  # the mesh path's single-rank reference
+            MESH["courtyard"] = (streams, (result.poses,
+                                           int(result.keyframe_count),
+                                           int(be.n_lc_edges), rec.records))
     same = np.array_equal(runs[0][0], runs[1][0])
     print(f"loop closure: two sync_backend runs bit-identical: {same}")
     if not same:
@@ -1199,12 +1236,11 @@ TARGET_GAP_T_MAX = 5e-3   # metres
 TARGET_GAP_R_MAX = 1e-3   # radians
 
 
-def other_targets(system):
+def last_submap(system):
     """The streamed path's last submap (the keyframe window of its last map
     rebuild, transformed and downsampled as ``_fused_window_target`` does)
-    as a dense map and as a sorted voxel table."""
+    and its centre."""
     from simpleslam_tpu_torch.models.registration import _fused_window_target
-    from simpleslam_tpu_torch.ops import voxel as vox
 
     mm = system.map_manager
     dev = system.register.device
@@ -1219,6 +1255,16 @@ def other_targets(system):
         mm._kf_store, torch.from_numpy(idx).to(dev),
         torch.from_numpy(pose_w).to(dev), torch.from_numpy(mask_w).to(dev),
         center_t, mm.grid_size, lambda ds, _: ds)
+    return submap, center_t
+
+
+def other_targets(system):
+    """The streamed path's last submap as a dense map and as a sorted voxel
+    table."""
+    from simpleslam_tpu_torch.ops import voxel as vox
+
+    submap, center_t = last_submap(system)
+    sel = system.map_manager._last_build[0]
     dense = vox.build_dense_voxel_map(submap, 2.0, center_t, DIMS, SLAB)
     table = vox.build_voxel_map(submap, TABLE_GRID, center_t, TABLE_VOXELS,
                                 TABLE_SLAB)
@@ -1871,8 +1917,552 @@ def memcheck_run(card: str) -> None:
         fail("memcheck: a steady-state check failed")
 
 
+# -- the mesh path: sharded execution over torch.distributed ranks -----------
+# Ranks are spawned processes. parallel/mesh.py's rule gives each rank a card
+# of its own and NCCL where the machine has a card per rank; otherwise the
+# ranks share cuda:0 in a gloo group (NCCL refuses two ranks on one card) and
+# time-share it, so no time here is a scaling number. n = 1 runs in this
+# process as a one-rank mesh, which sets no hook: it is the unsharded call.
+MESH_RANKS = (2, 4)
+MESH_POSE_T_TOL = 1e-4    # metres, sharded against the unsharded stepwise loop
+MESH_POSE_R_TOL = 1e-6    # radians
+MESH_BATCH_T_TOL = 5e-3   # metres, NDT / VGICP sharded batch (tests/test_parallel.py)
+MESH_SOLVE_T_TOL = 1e-3   # metres, sharded solve against the one-rank PCG solve
+MESH_PIPE_T_TOL = 5e-3    # metres, mesh pipeline against the single-rank run
+MESH_BATCH_SCANS = 2      # scans of the NDT / VGICP sharded batches
+MESH_RING = {"k": 256, "k_cap": 256, "e_cap": 512, "n_lc": 4,
+             "max_iters": 6, "cg_iters": 32}   # posegraph_worker's defaults
+MESH = {}                 # what the mesh path takes from earlier phases
+
+
+def mesh_note(n: int) -> str:
+    """What a mesh time of ``n`` ranks is, on this machine."""
+    if n == 1:
+        return "one rank in this process, no collective"
+    if torch.cuda.device_count() >= n:
+        return f"{n} ranks on {n} cards, NCCL: no scaling claimed"
+    return "ranks time-share one card: these times are no scaling numbers"
+_MESH_TMP = None
+
+
+def _mesh_dir() -> str:
+    global _MESH_TMP
+    if _MESH_TMP is None:
+        _MESH_TMP = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    return _MESH_TMP.name
+
+
+def to_device(obj, dev):
+    """Tensors, named tuples of them and dicts of those, on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(f, dev) for f in obj))
+    return obj
+
+
+def mesh_capture(system, streams, result) -> None:
+    """What the mesh path takes from the streamed full run, written once for
+    the ranks: its last merged map, the same submap as a dense map and a
+    sorted table, its last scan prepped at the latched capacity with the
+    0.25 m offset of its recorded pose as the start, the two scans before it
+    with the submap as NDT and VGICP targets, and its poses and keyframes."""
+    import pickle
+
+    from simpleslam_tpu_torch.ops import ndt as ndt_ops
+    from simpleslam_tpu_torch.ops import vgicp as vgicp_ops
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    mm = system.map_manager
+    mm.commit_pending_target()
+    dev = system.register.device
+    cap = int(result.extras["scan_capacity"])
+    n = len(streams.scan_stamps)
+    submap, center = last_submap(system)
+    targets = {"merged": mm.get_target(), **other_targets(system)}
+    rows, _ = prep_scans(system, streams, [n - 1], cap)
+    src = streamed.upload_cloud(torch.from_numpy(rows).to(dev)[0])
+    pose = torch.tensor(result.poses[n - 1].astype(np.float32), device=dev)
+    root = _mesh_dir()
+    MESH["scan2map"] = os.path.join(root, "scan2map.pt")
+    torch.save(to_device({"src": src, "init": offset_pose(pose),
+                          "targets": targets}, "cpu"), MESH["scan2map"])
+    k = MESH_BATCH_SCANS
+    brows, _ = prep_scans(system, streams, list(range(n - k, n)), cap)
+    dims = (192, 192, 32)   # the default tpu.dense_grid_dims
+
+    def pose_at(i):
+        return torch.tensor(result.poses[i].astype(np.float32))
+
+    MESH["batch"] = os.path.join(root, "batch.pt")
+    torch.save(to_device({
+        "rows": torch.from_numpy(brows), "pose_prev": pose_at(n - k - 1),
+        "pose_prev2": pose_at(n - k - 2),
+        "odom2map": torch.eye(4, dtype=torch.float32),
+        "targets": {"ndt": ndt_ops.build_target(submap, 1.0, center, dims),
+                    "vgicp": vgicp_ops.build_target(submap, 1.0, center,
+                                                    dims)}}, "cpu"),
+        MESH["batch"])
+    MESH["streams"] = os.path.join(root, "streams.pkl")
+    with open(MESH["streams"], "wb") as f:
+        pickle.dump(streams, f)
+    be = system.backend
+    MESH["full"] = (result.poses.copy(), int(result.keyframe_count),
+                    int(be.n_lc_edges), result.extras["gn_records"])
+    print(f"mesh inputs: scan {n - 1} ({int(src.mask.sum())} valid of {cap}), "
+          f"merged map rows {tuple(targets['merged'].rows.shape)} int16, "
+          f"{k} scans for the NDT / VGICP batches; written for the ranks")
+
+
+def courtyard_streams():
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+
+    return sim.simulate_sequence(
+        make_courtyard(sim, LC_RADIUS, seed=0), n_scans=LC_SCANS, seed=2,
+        radius=LC_RADIUS, speed=LC_SPEED, n_az=720, n_el=12, scan_noise=0.03)
+
+
+def courtyard_reference():
+    """The single-rank courtyard run of phase 7 (``tpu.sync_backend``, the
+    schedule a mesh of several ranks runs its backend on): (streams,
+    (poses, keyframes, closures, registrations)); run here when phase 7
+    did not run."""
+    if "courtyard" not in MESH:
+        from simpleslam_tpu_torch.pipeline import app
+        from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+        streams = courtyard_streams()
+        system = app.SlamSystem(dict(LC_CFG, torch={"device": "cuda"}))
+        with GnRecorder() as rec:
+            res = run_streamed(system, streams)
+        MESH["courtyard"] = (streams, (res.poses, int(res.keyframe_count),
+                                       int(system.backend.n_lc_edges),
+                                       rec.records))
+    return MESH["courtyard"]
+
+
+def _rank_counts(c: dict) -> dict:
+    """A rank's kernel counters in the shape of ``launch_counts``: on the
+    sharded path K1, K2 and K4 launch on their own (no K3, so no phases)."""
+    return {"k3": c["K3_LAUNCHES"], "k4": c["K4_LAUNCHES"],
+            "k1_standalone": c["K1_LAUNCHES"],
+            "k2_standalone": c["K2_LAUNCHES"],
+            "plain": (c["K1_PLAIN_CUDA_CALLS"] + c["K2_PLAIN_CUDA_CALLS"]
+                      + c["K4_PLAIN_CUDA_CALLS"]),
+            "stepwise": c["K3_PLAIN_CUDA_CALLS"],
+            "sharded_stepwise": c["SHARDED_STEPWISE_CALLS"],
+            "registrations": c["SHARDED_STEPWISE_CALLS"], "k1": 0, "k2": 0}
+
+
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b[k] for k in b}
+
+
+def _pose_gap(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (float(np.linalg.norm(a[:3, 3] - b[:3, 3])),
+            _rot_angle(a[:3, :3], b[:3, :3]))
+
+
+def _same_on_ranks(name: str, results, key) -> None:
+    first = key(results[0])
+    for r, res in enumerate(results[1:], 1):
+        if key(res) != first:
+            fail(f"{name}: rank {r} differs from rank 0")
+
+
+def _check_mesh_counts(name: str, c: dict, target: str, n_reg: int) -> None:
+    need = "k1_standalone" if target == "merged" else "k4"
+    if c[need] < 1 or c["sharded_stepwise"] != n_reg:
+        fail(f"{name}: {need} launches {c[need]}, sharded loops "
+             f"{c['sharded_stepwise']} for {n_reg} registrations")
+    if c["plain"] or c["stepwise"] or c["k3"]:
+        fail(f"{name}: plain versions, the unsharded stepwise loop or K3 ran "
+             f"on CUDA: {c}")
+
+
+def mesh_registration_check(n: int, res: dict, ref: dict, ref_k3: dict,
+                            card: str, by_path: dict) -> None:
+    """One world size's sharded registrations: with one rank bit-identical
+    to the unsharded ``gn_loop`` (``ref_k3``, one launch of K3 each), with
+    more within the tolerance of the unsharded stepwise loop (``ref``) with
+    equal counts; two runs bit-identical; kernel counts."""
+    total = {}
+    for name, r in res.items():
+        runs = r["runs"]
+        if runs[0] != runs[1]:
+            fail(f"mesh n={n} {name}: two runs differ")
+        got, want = runs[0], ref[name]
+        dt, dr = _pose_gap(got["pose"], want["pose"])
+        k3t, k3r = _pose_gap(got["pose"], ref_k3[name]["pose"])
+        counts_eq = ((got["iters"], got["gathers"], got["converged"])
+                     == (want["iters"], want["gathers"], want["converged"]))
+        print(f"  n={n} {name}: |dt| {dt:.3e} m, |dR| {dr:.3e} rad from the "
+              f"unsharded stepwise loop, {k3t:.3e} m, {k3r:.3e} rad from "
+              f"the unsharded gn_loop (K3); iterations {got['iters']} / "
+              f"{want['iters']}, gathers {got['gathers']} / {want['gathers']}"
+              f", n_valid {got['n_valid']} / {want['n_valid']}; "
+              f"{r['stats']['collectives']} collectives in "
+              f"{1e3 * r['stats']['collective_s']:.2f} ms, host-staged "
+              f"{r['stats']['staged_calls']} calls / "
+              f"{r['stats']['staged_bytes']} B over {len(runs)} runs "
+              f"({card}; {mesh_note(n)})")
+        c = _rank_counts(r["counts"])
+        if n == 1:
+            if got != ref_k3[name]:
+                fail(f"mesh n=1 {name}: not bit-identical to the unsharded "
+                     "gn_loop")
+            c["k1"] = sum(x["gathers"] for x in runs)
+            c["k2"] = sum(x["iters"] - x["gathers"] for x in runs)
+            c["registrations"] = len(runs)
+            if (c["k3"] != len(runs) or c["plain"] or c["stepwise"]
+                    or c["sharded_stepwise"] or c["k4"]
+                    or c["k1_standalone"] or c["k2_standalone"]):
+                fail(f"mesh n=1 {name}: not one K3 launch per call: {c}")
+        else:
+            if not counts_eq or dt > MESH_POSE_T_TOL or dr > MESH_POSE_R_TOL:
+                fail(f"mesh n={n} {name}: off the unsharded stepwise loop")
+            _check_mesh_counts(f"mesh n={n} {name}", c, name, len(runs))
+        total = _add_counts(total, c)
+    if n > 1 and total["k2_standalone"] < 1:
+        fail(f"mesh n={n}: K2 never launched: {total}")
+    print(f"  n={n}: {describe_launches(total)}, sharded loops "
+          f"{total['sharded_stepwise']}")
+    by_path[f"mesh_registration_n{n}"] = total
+
+
+def mesh_hold_kernels(inp: dict, card: str) -> dict:
+    """K1, K4 (dense and table gathers) and K2 against their plain versions
+    on rank 1's block of the n = 2 shard, at the start pose; times on it."""
+    from simpleslam_tpu_torch.ops import geometry as geo
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.ops.pointcloud import PointCloud
+
+    src = inp["src"]
+    q = src.xyz.shape[0]
+    b = slice(q // 2, q)
+    blk = PointCloud(src.xyz[b].contiguous(), src.intensity[b].contiguous(),
+                     src.mask[b].contiguous())
+    sqrt_r = loam.source_sqrt_range(blk)
+    p0 = geo.transform_points(inp["init"], blk.xyz)
+    p1 = geo.transform_points(offset_pose(inp["init"]), blk.xyz)
+    merged = inp["targets"]["merged"]
+    err = {}
+    got = lk.fit_and_linearize_merged(merged, p0, sqrt_r, blk.mask)
+    err["k1"] = compare("mesh K1, rank 1 block", got,
+                        lk.fit_and_linearize_merged_plain(merged, p0, sqrt_r,
+                                                          blk.mask))
+    err["k2"] = compare("mesh K2, rank 1 block",
+                        lk.plane_normal_equations(got[3], p1, sqrt_r),
+                        lk.plane_normal_equations_plain(got[3], p1, sqrt_r))
+    t = {"k1": time_ms(lambda: lk.fit_and_linearize_merged(
+             merged, p0, sqrt_r, blk.mask)),
+         "k2": time_ms(lambda: lk.plane_normal_equations(got[3], p1,
+                                                         sqrt_r))}
+    err["k4"] = 0.0
+    for name in ("dense", "table"):
+        cand, ok = loam.gather_candidates_at(inp["targets"][name], p0,
+                                             blk.mask)
+        g4 = lk.fit_and_linearize_candidates(cand, ok, p0, sqrt_r, blk.mask)
+        r4 = lk.fit_and_linearize_candidates_plain(cand, ok, p0, sqrt_r,
+                                                   blk.mask)
+        err["k4"] = max(err["k4"], compare(f"mesh K4 {name}, rank 1 block",
+                                           g4, r4))
+        check_k4(f"mesh {name}, rank 1 block", g4, r4)
+        t[f"k4_{name}"] = time_ms(lambda: lk.fit_and_linearize_candidates(
+            cand, ok, p0, sqrt_r, blk.mask))
+    print(f"  rank 1's block ({q // 2} queries): K1 {t['k1']:.4f} ms, K2 "
+          f"{t['k2']:.4f} ms, K4 dense {t['k4_dense']:.4f} ms, K4 table "
+          f"{t['k4_table']:.4f} ms per wrapper call ({card})")
+    return {"max_abs_err": err, "ms": t, "queries": q // 2}
+
+
+def mesh_pipeline_check(name: str, runs, ref: tuple, gt, ate_max: float,
+                        card: str) -> dict:
+    """A mesh pipeline against the single-rank run of the same config
+    (``ref``: poses, keyframes, accepted closures and the K3 registrations'
+    records). ``runs`` is every rank's results of two runs: a timed one,
+    and one where every registration is also run unsharded, by K3 on the
+    gathered scan from the same start against the same map
+    (``workers._UnshardedBeside``). Checked: every rank and both runs
+    bit-identical; every registration within phase 3's bounds of K3 on
+    its own inputs (``POSE_T_TOL``, ``POSE_R_TOL``; at most
+    ``COUNT_MISMATCH_MAX`` of them with other counts); keyframes, closures,
+    ATE and the converged share. The per-scan gap to the single-rank run
+    is printed with the registration where the two runs part: a start
+    gap of rounding size there flips the plane set, and the chain carries
+    the step (ROADMAP section 3, F6), so it is not bounded."""
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+
+    ref_poses, ref_kf, ref_closures, (ref_starts, ref_res, ref_iters,
+                                      ref_gathers) = ref
+    timed, beside = [r[0] for r in runs], [r[1] for r in runs]
+    for rs in (timed, beside):
+        _same_on_ranks(name, rs, lambda r: (r["poses"], r["kf_poses"]))
+        _same_on_ranks(name, rs, lambda r: r["backend"])
+    r0 = timed[0]
+    if beside[0]["poses"] != r0["poses"]:
+        fail(f"{name}: two runs differ")
+    poses = np.asarray(r0["poses"])
+    err = np.linalg.norm(poses[:, :3, 3] - ref_poses[:, :3, 3], axis=1)
+    ate = float(sim.ate_rmse(gt, poses, align=False))
+    m = r0["mesh"]
+    n_scans = len(poses)
+    print(f"  {name}: {n_scans} scans on {m['ranks']} ranks ({m['backend']}) "
+          f"in {r0['wall_s']:.2f} s = {r0['scans_per_s']:.2f} scans/s; "
+          f"{m['collectives'] / n_scans:.2f} collectives per scan, "
+          f"{1e3 * m['collective_s'] / max(m['collectives'], 1):.3f} ms each "
+          f"(host staging included), host-staged {m['staged_calls']} calls / "
+          f"{m['staged_bytes']} B ({card}; {mesh_note(m['ranks'])})")
+
+    reg = np.asarray(beside[0]["registrations"], np.float64)
+    starts = reg[:, :16].reshape(-1, 4, 4)
+    got, got_c = reg[:, 16:32].reshape(-1, 4, 4), reg[:, 32:36]
+    k3, k3_c = reg[:, 36:52].reshape(-1, 4, 4), reg[:, 52:56]
+    same = np.array([_pose_gap(a, b) for a, b in zip(got, k3)])
+    other = ((got_c[:, :2] != k3_c[:, :2]).any(1)
+             | (got_c[:, 3] != k3_c[:, 3])
+             | (np.abs(got_c[:, 2] - k3_c[:, 2]) > N_VALID_TOL))
+    share = float(other.mean())
+    keep = same[~other]
+    flips = ", ".join(f"{g:.3e} m" for g in same[other, 0])
+    print(f"  {name}: every registration against K3 on its own inputs: "
+          f"{len(reg)} registrations, largest gap {keep[:, 0].max():.3e} m, "
+          f"{keep[:, 1].max():.3e} rad; {int(other.sum())} with other "
+          f"iterations, gathers, flag or valid rows ({100 * share:.2f} %"
+          f"{'; their gaps ' + flips if flips else ''})")
+    if (keep[:, 0].max() > POSE_T_TOL or keep[:, 1].max() > POSE_R_TOL
+            or share > COUNT_MISMATCH_MAX):
+        fail(f"{name}: a sharded registration is off K3 on its own inputs")
+
+    res_gap = np.linalg.norm(got[:, :3, 3] - ref_res[:, :3, 3], axis=1)
+    part = np.nonzero(res_gap > 1e-3)[0]
+    firsts = {g: (int(np.nonzero(err > g)[0][0]) if (err > g).any()
+                  else None) for g in (1e-4, 1e-3, MESH_PIPE_T_TOL)}
+    print(f"  {name}: per-scan gap to the single-rank run: max "
+          f"{err.max():.3e} m (scan {int(err.argmax())}); first scan past "
+          f"1e-4 / 1e-3 / {MESH_PIPE_T_TOL:g} m: {firsts[1e-4]} / "
+          f"{firsts[1e-3]} / {firsts[MESH_PIPE_T_TOL]}")
+    if len(part):
+        i = int(part[0])
+        print(f"  {name}: the runs part at registration {i}: starts "
+              f"{np.linalg.norm(starts[i, :3, 3] - ref_starts[i, :3, 3]):.3e}"
+              f" m apart -> results {res_gap[i]:.3e} m apart (the one before:"
+              f" {res_gap[i - 1] if i else 0.0:.3e} m); iterations "
+              f"{int(got_c[i, 0])} / {int(ref_iters[i])}, gathers "
+              f"{int(got_c[i, 1])} / {int(ref_gathers[i])}; on the mesh "
+              f"run's own inputs K3 lies {same[i, 0]:.3e} m from the sharded "
+              f"loop (iterations {int(k3_c[i, 0])}, valid rows "
+              f"{int(k3_c[i, 2])} / {int(got_c[i, 2])})")
+    print(f"  {name}: ATE {ate:.4f} m unaligned; keyframes "
+          f"{r0['keyframe_count']} / {ref_kf}; closures {r0['lc_accepted']} "
+          f"/ {ref_closures}; backend {r0['backend']}; every rank and both "
+          f"runs bit-identical")
+    if not np.isfinite(poses).all():
+        fail(f"{name}: non-finite poses")
+    if r0["keyframe_count"] != ref_kf or r0["lc_accepted"] != ref_closures:
+        fail(f"{name}: keyframes or closures differ from the single-rank run")
+    if not ate < ate_max or not r0["converged_frac"] > STREAMED_CONV_MIN:
+        fail(f"{name}: ATE {ate} m or converged {r0['converged_frac']}")
+    if m["backend"] == "nccl" and m["staged_calls"]:
+        fail(f"{name}: NCCL ranks staged collectives through the host")
+    c = _rank_counts(r0["counts"])
+    _check_mesh_counts(name, c, "merged", n_scans - 1)
+    if c["k2_standalone"] < 1:
+        fail(f"{name}: K2 never launched")
+    print(f"  {name}: {describe_launches(c)}")
+    return c
+
+
+def check_rank_devices(n: int, devs: list) -> None:
+    """The ranks' backend is the rule's, NCCL ranks hold a card each, and
+    the cross-rank sum of the rank ids is right."""
+    from simpleslam_tpu_torch.parallel import mesh as pmesh
+
+    want = pmesh.choose_backend(n, "cuda", torch.cuda.device_count())
+    print(f"  {n} ranks: backend {[d['backend'] for d in devs]} (the rule: "
+          f"{want}), devices {[d['device'] for d in devs]}")
+    if any(d["backend"] != want for d in devs):
+        fail(f"mesh n={n}: the ranks' backend is not the rule's {want}")
+    if want == "nccl" and len({d["device"] for d in devs}) != n:
+        fail(f"mesh n={n}: NCCL ranks share a card")
+    if any(d["psum"] != n * (n - 1) / 2 for d in devs):
+        fail(f"mesh n={n}: the cross-rank sum is wrong")
+
+
+def mesh_paths(card: str) -> dict:
+    """The mesh path (phase 17): sharded registration on n = 1 (here), 2 and
+    4 ranks, the kernels on a rank's block, the NDT and VGICP sharded
+    batches, the sharded solve in its three modes, and the mesh pipeline
+    (bench full config and the courtyard loop) on 2 ranks. Returns
+    {path name: launch counts of rank 0}."""
+    import pickle
+
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.parallel import mesh as pmesh
+    from simpleslam_tpu_torch.parallel import multihost
+    from simpleslam_tpu_torch.parallel.dist_posegraph import (
+        _ring_graph, sharded_solve)
+    from simpleslam_tpu_torch.parallel.dist_registration import (
+        sharded_scan2map)
+    from simpleslam_tpu_torch.parallel.workers import _counts, _loam_row
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    phase("mesh: sharded execution over torch.distributed ranks")
+    n_cards = torch.cuda.device_count()
+    for n in MESH_RANKS:
+        print(f"mesh: rule of parallel/mesh.py with {n_cards} card(s): {n} "
+              f"ranks -> {pmesh.choose_backend(n, 'cuda', n_cards)} "
+              f"({mesh_note(n)}; {card})")
+    dev = torch.device("cuda")
+    by_path = {}
+    inp = to_device(torch.load(MESH["scan2map"], weights_only=False), dev)
+    ref = {name: _loam_row(loam.gn_loop_stepwise(inp["src"], t,
+                                                     inp["init"]))
+           for name, t in inp["targets"].items()}
+    ref_k3 = {name: _loam_row(loam.gn_loop(inp["src"], t, inp["init"]))
+              for name, t in inp["targets"].items()}
+    # n = 1: the one-rank mesh in this process; it sets no hook
+    m1 = pmesh.make_mesh(1, ("dp",), device=dev)
+    res1 = {}
+    for name, t in inp["targets"].items():
+        lk.reset_counts()
+        pmesh.reset_stats()
+        runs = [_loam_row(sharded_scan2map(m1)(inp["src"], t,
+                                                   inp["init"]))
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        res1[name] = {"runs": runs, "counts": _counts(),
+                      "stats": dict(pmesh.STATS)}
+    mesh_registration_check(1, res1, ref, ref_k3, card, by_path)
+    held = mesh_hold_kernels(inp, card)
+
+    cy_streams, cy_ref = courtyard_reference()
+    cy_path = os.path.join(_mesh_dir(), "courtyard.pkl")
+    with open(cy_path, "wb") as f:
+        pickle.dump(cy_streams, f)
+    solve_modes = [{}, {"shard_cg": True}, {"shard_lin": True}]
+    tasks2 = [
+        {"fn": "devices_worker"},
+        {"fn": "scan2map_worker", "payload": {"inputs": MESH["scan2map"],
+                                              "reps": 2}},
+        {"fn": "batch_worker", "payload": {"inputs": MESH["batch"]}},
+        {"fn": "posegraph_worker", "payload": dict(
+            MESH_RING, reps=1, return_poses=MESH_RING["k"],
+            modes=solve_modes)},
+    ]
+    pipes = [{"config": dict(BENCH_FULL, torch={"device": "cuda"},
+                             tpu={"mesh_devices": 2}),
+              "streams": MESH["streams"], "sync_every": BENCH_SYNC_EVERY},
+             {"config": dict(LC_CFG, torch={"device": "cuda"},
+                             tpu=dict(LC_CFG["tpu"], mesh_devices=2)),
+              "streams": cy_path, "sync_every": 16}]
+    # each pipeline twice: timed, then with K3 beside every registration
+    tasks2 += [{"fn": "pipeline_worker",
+                "payload": dict(p, unsharded_beside=beside)}
+               for p in pipes for beside in (False, True)]
+    del inp
+    torch.cuda.empty_cache()
+    spawned = {}
+    for n, tasks in ((2, tasks2), (4, tasks2[:2])):
+        t0 = time.perf_counter()
+        res = multihost.run_hosts(
+            n, "simpleslam_tpu_torch.parallel.workers:tasks_worker",
+            {"tasks": tasks}, timeout=600.0, device="cuda")
+        print(f"mesh: {n} ranks ran {len(tasks)} task(s) in "
+              f"{time.perf_counter() - t0:.1f} s (start-up included)")
+        for line in multihost.LAST_LOGS[0][0].splitlines():
+            if "torch.distributed backend" in line:
+                print(f"  {line}")
+        spawned[n] = [[t["result"] for t in r["tasks"]] for r in res]
+        check_rank_devices(n, [r[0] for r in spawned[n]])
+
+    phase("mesh: sharded registration on the streamed full inputs")
+    for n in MESH_RANKS:
+        per_rank = [r[1] for r in spawned[n]]
+        _same_on_ranks(f"mesh n={n} registration", per_rank,
+                       lambda r: {k: v["runs"] for k, v in
+                                  r["targets"].items()})
+        print(f"  n={n}: rank block {per_rank[0]['block']} queries, backend "
+              f"{per_rank[0]['backend']}")
+        if per_rank[0]["backend"] == "nccl" and any(
+                v["stats"]["staged_calls"]
+                for v in per_rank[0]["targets"].values()):
+            fail(f"mesh n={n}: NCCL ranks staged collectives through the "
+                 "host")
+        mesh_registration_check(n, per_rank[0]["targets"], ref, ref_k3, card,
+                                by_path)
+
+    ranks = spawned[2]
+    note2 = mesh_note(2)
+    phase("mesh: NDT and VGICP sharded batches (2 ranks)")
+    binp = to_device(torch.load(MESH["batch"], weights_only=False), dev)
+    for kind, tgt in binp["targets"].items():
+        _same_on_ranks(f"mesh {kind} batch", [r[2] for r in ranks],
+                       lambda r: r[kind]["runs"])
+        (_, _, _), packed = streamed._batch_body(
+            binp["rows"], tgt, binp["pose_prev"], binp["pose_prev2"],
+            binp["odom2map"], kind, True, 0.0)
+        single = packed.cpu().numpy()
+        meshed = np.asarray(ranks[0][2][kind]["runs"][0]["packed"])
+        gap = float(np.abs(meshed[:, :16] - single[:, :16]).max())
+        st = ranks[0][2][kind]["stats"]
+        print(f"  {kind}: {MESH_BATCH_SCANS} scans, pose rows within "
+              f"{gap:.3e} of the one-rank batch; {st['collectives']} "
+              f"collectives in {1e3 * st['collective_s']:.2f} ms, "
+              f"{ranks[0][2][kind]['seconds']:.2f} s on the ranks "
+              f"({card}; {note2})")
+        if not np.isfinite(meshed).all() or gap > MESH_BATCH_T_TOL:
+            fail(f"mesh {kind} batch: {gap} off the one-rank batch")
+
+    phase("mesh: sharded pose-graph solve, three modes (2 ranks)")
+    g = _ring_graph(k=MESH_RING["k"], k_cap=MESH_RING["k_cap"],
+                    e_cap=MESH_RING["e_cap"], n_lc=MESH_RING["n_lc"],
+                    device=dev)
+    one = sharded_solve(pmesh.make_mesh(1, ("kf",), device=dev),
+                        max_iters=MESH_RING["max_iters"],
+                        cg_iters=MESH_RING["cg_iters"])(g)
+    one_t = one.poses[:, :3, 3].cpu().numpy()
+    _same_on_ranks("mesh solve", [r[3] for r in ranks],
+                   lambda r: [(m["poses"], m["cost"], m["cost0"])
+                              for m in r["modes"]])
+    for kw, r in zip(solve_modes, ranks[0][3]["modes"]):
+        tag = ",".join(kw) or "replicated CG"
+        gap = float(np.abs(np.asarray(r["poses"])[:, :3, 3] - one_t).max())
+        print(f"  {tag}: cost {r['cost0']:.4f} -> {r['cost']:.6f}; "
+              f"translations within {gap:.3e} m of the one-rank PCG solve; "
+              f"{r['times_s'][0] * 1e3:.2f} ms per solve, "
+              f"{r['collectives_per_solve']:.0f} collectives per solve in "
+              f"{1e3 * r['collective_s_per_solve']:.2f} ms ({card}; "
+              f"{note2})")
+        if not r["cost"] < r["cost0"] or gap > MESH_SOLVE_T_TOL:
+            fail(f"mesh solve {tag}: cost or poses off")
+
+    phase("mesh: streamed pipeline on 2 ranks (bench full, courtyard)")
+    with open(MESH["streams"], "rb") as f:
+        ref_streams = pickle.load(f)
+    by_path["mesh_full"] = mesh_pipeline_check(
+        "mesh full", [r[4:6] for r in ranks], MESH["full"],
+        ref_streams.gt_poses, STREAMED_ATE_MAX, card)
+    by_path["mesh_courtyard"] = mesh_pipeline_check(
+        "mesh courtyard", [r[6:8] for r in ranks], cy_ref,
+        cy_streams.gt_poses, 0.1, card)
+    if ranks[0][6]["lc_accepted"] < 1:
+        fail("mesh courtyard: no closure accepted")
+    staged = [r[k]["mesh"] for r in ranks[:1] for k in (4, 6)]
+    print(f"mesh: host staging of the 2-rank pipelines' collectives (rank "
+          f"0): {sum(s['staged_calls'] for s in staged)} calls, "
+          f"{sum(s['staged_bytes'] for s in staged)} B ({card}; {note2})")
+    MESH["held"] = held
+    return by_path
+
+
 NEW_PATHS = ("lio", "ndt", "vgicp", "threaded", "k4", "recorded", "probe",
-             "memcheck")
+             "memcheck", "mesh")
 
 
 def new_paths(which, streams, card: str, full=None):
@@ -1884,7 +2474,7 @@ def new_paths(which, streams, card: str, full=None):
 
     head = head_of(sim, streams, REGISTER_SCANS)
     out, k4_entry, k3_targets = {}, None, None
-    if full is None and {"k4", "recorded"} & set(which):
+    if full is None and {"k4", "recorded", "mesh"} & set(which):
         _, full_sys, full_res = streamed_run(
             "streamed full (bench full config)", BENCH_FULL, streams, card,
             prewarm=True, probe_scans=0)
@@ -1893,6 +2483,8 @@ def new_paths(which, streams, card: str, full=None):
         k4_entry, paths, k3_targets = k4_phases(full[0], streams, full[1],
                                                 card)
         out.update(paths)
+    if "mesh" in which:  # its inputs; the path itself runs last (main)
+        mesh_capture(full[0], streams, full[1])
     if "recorded" in which:
         full_res = full[1]
         full = None            # the system's device memory goes before a replay
@@ -1938,6 +2530,8 @@ def main() -> int:
                                         n_scans=args.stream_scans, seed=0,
                                         n_az=1800, n_el=16)
         new_paths(which, streams, card)
+        if "mesh" in which:
+            mesh_paths(card)
         print(f"--only {args.only}: passed, no result line")
         return 0
     kern, tally = kernels(card)
@@ -1973,6 +2567,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
     by_path.update(new)
+    by_path.update(mesh_paths(card))
 
     # launches, errors, times and bounds of the main path (streamed full);
     # the offline inputs' errors count as well. K3 is the kernel the paths
@@ -1994,6 +2589,15 @@ def main() -> int:
                 p: c[key + "_standalone"] for p, c in by_path.items()}
     # on the scan2map paths K3's K1 phase reads its candidates from the
     # dense map's corner block or the table's 27 cells, not a merged row
+    # the mesh path (phase 17) launches K1, K2 and K4 on their own, per
+    # rank's block of the scan; each is held against its plain version on
+    # rank 1's block of the 2-rank shard
+    held = MESH["held"]
+    for k, key in zip(kern, ("k1", "k2")):
+        k["max_abs_err"] = max(k["max_abs_err"], held["max_abs_err"][key])
+        k["mesh_block"] = {"queries": held["queries"],
+                           "ms": held["ms"][key],
+                           "max_abs_err": held["max_abs_err"][key]}
     kern[0]["phase_source_by_path"] = {
         p: {"scan2map_dense": "dense map corner block",
             "scan2map_table": "sorted table, 27 cells"}.get(p, "merged row")
@@ -2007,14 +2611,22 @@ def main() -> int:
     # K3 on the other two targets (phase 13): its launches there, its time,
     # device time and bound from the last scan's recorded pose
     kern[2]["on_targets"] = k3_targets
-    # K4 serves K3's plain version (the stepwise loop's gather + K4 on a
-    # dense or table target) and the sharded path to come; every path runs
-    # K3 instead, so K4's own launches there are 0 (phase 12 holds it)
-    k4_entry["launches"] = by_path["streamed_full"]["k4"]
+    # K4 runs on the mesh path's registrations on a dense map or a sorted
+    # table (the single-rank paths run K3 there instead): its launches are
+    # those of the mesh path, this kernel's main path
+    k4_entry["launches"] = sum(c["k4"] for p, c in by_path.items()
+                               if p.startswith("mesh_"))
     k4_entry["launches_by_path"] = {p: c["k4"] for p, c in by_path.items()}
-    k4_entry["launches_are"] = ("launches of this kernel; no path runs it: "
-                                "it serves gn_loop_stepwise, K3's plain "
-                                "version, on a dense or table target")
+    k4_entry["launches_are"] = ("launches of this kernel on the mesh path "
+                                "(phase 17): the sharded registrations on a "
+                                "dense or table target; the single-rank "
+                                "paths run K3 there")
+    k4_entry["max_abs_err"] = max(k4_entry["max_abs_err"],
+                                  held["max_abs_err"]["k4"])
+    k4_entry["mesh_block"] = {"queries": held["queries"],
+                              "ms_dense": held["ms"]["k4_dense"],
+                              "ms_table": held["ms"]["k4_table"],
+                              "max_abs_err": held["max_abs_err"]["k4"]}
     kern.append(k4_entry)
     print(json.dumps({"kernels": kern}))
     print(card)

@@ -1,8 +1,8 @@
 """Backend: keyframe pose-graph optimization + correction broadcast.
 
 Port of ``simpleslam_tpu/models/backend.py`` (reference
-``backend/src/Backend.cpp:29-360``) for one device, with the GTSAM iSAM2
-pimpl replaced by ``ops/posegraph.py``:
+``backend/src/Backend.cpp:29-360``), with the GTSAM iSAM2 pimpl replaced by
+``ops/posegraph.py``:
 
 - prior factor on keyframe 0 (``addPrior``, Backend.cpp:85);
 - odometry Between factors from the nearest keyframe at insertion time
@@ -19,6 +19,15 @@ The device factor graph is preallocated at bucket sizes (x4 growth up to
 ``tpu.max_keyframes`` / ``tpu.max_edges``); each event writes only its new
 pose and edge rows into it, in place, and the solved poses stay on the
 device between events. One host read per solve fetches the packed result.
+
+With ``tpu.mesh_devices = n`` the graph is solved edge-sharded over the
+``n`` ranks of a "kf" process group of its own (``parallel.dist_posegraph``,
+replicated-CG mode): each rank holds its contiguous block of the edge rows
+(the edge bucket is a multiple of ``n``) and the poses in full, and every
+rank ends each solve with the same poses. Every rank must run the same
+passes in the same order (the streamed executor runs them inline on more
+than one rank); only rank 0 writes the g2o file. One rank solves as a
+single device does.
 
 Noise models (Backend.cpp:90-97; gtsam orders (rot, trans), ours is
 (trans, rot)): variances
@@ -69,16 +78,24 @@ class Backend:
         self.device = torch.device(cfg["torch"]["device"])
 
         tpu = cfg["tpu"]
-        if int(tpu.get("mesh_devices", 0)):
-            raise NotImplementedError(
-                "the sharded pose-graph solve (tpu.mesh_devices > 0) is not "
-                "ported to simpleslam_tpu_torch yet (ROADMAP item 12)")
         self.k_cap = int(tpu["max_keyframes"])
         self.e_cap = int(tpu["max_edges"])
         # bucketed device capacities: the padded solve costs O(capacity) per
         # LM iteration, so buckets grow x4 on demand
         self._k_bucket = min(int(tpu.get("kf_bucket", 128)), self.k_cap)
         self._e_bucket = min(int(tpu.get("edge_bucket", 512)), self.e_cap)
+        # multi-device: the graph solves edge-sharded over the ranks
+        mesh_n = int(tpu.get("mesh_devices", 0))
+        self._mesh = None
+        self._sharded_solvers = {}
+        if mesh_n:
+            from ..parallel.mesh import make_mesh
+
+            mesh = make_mesh(mesh_n, ("kf",), device=self.device)
+            if mesh_n > 1:  # one rank solves as one device does
+                self._mesh = mesh
+                # edge buckets split evenly over the ranks
+                self._e_bucket = -(-self._e_bucket // mesh_n) * mesh_n
 
         # factor storage (host mirror for g2o persistence)
         self.edge_i: List[int] = []
@@ -236,7 +253,7 @@ class Backend:
             g = self._sync_graph(kf_poses)
         # iSAM2-equivalent budget: a few damped GN steps per keyframe event,
         # a stronger re-solve on loop closure (Backend.cpp:301-304)
-        res = pgo.solve(g, max_iters=12 if strong else 4, cg_iters=64)
+        res = self._solver(12 if strong else 4)(g)
         self.n_solves += 1
         self._g = g._replace(poses=res.poses)  # stays on the device
         packed = _pack_solve(res)
@@ -254,6 +271,27 @@ class Backend:
             out.append(T)
         return out
 
+    def _solver(self, iters: int):
+        """The solve of ``iters`` LM iterations: on one device, or the
+        edge-sharded one over the mesh (cached per budget)."""
+        if self._mesh is None:
+            return lambda g: pgo.solve(g, max_iters=iters, cg_iters=64)
+        fn = self._sharded_solvers.get(iters)
+        if fn is None:
+            from ..parallel.dist_posegraph import sharded_solve
+
+            fn = sharded_solve(self._mesh, axis="kf", max_iters=iters,
+                               cg_iters=64)
+            self._sharded_solvers[iters] = fn
+        return fn
+
+    def _edge_block(self, ec: int) -> slice:
+        """The edge rows of a bucket of ``ec`` this process holds: its
+        rank's block on a mesh, all of them otherwise."""
+        if self._mesh is None:
+            return slice(0, ec)
+        return self._mesh.axis("kf").shard(ec)
+
     def _sync_graph(self, kf_poses: List[np.ndarray]) -> pgo.PoseGraph:
         """The device graph with this event's new pose and edge rows written
         in place (the caller holds ``self._lock``); a bucket growth rebuilds
@@ -266,6 +304,9 @@ class Backend:
             self.n_bucket_growths += 1
         while e > self._e_bucket:
             self._e_bucket = min(self._e_bucket * 4, self.e_cap)
+            if self._mesh is not None:  # keep edges rank-divisible
+                n = self._mesh.world_size
+                self._e_bucket = -(-self._e_bucket // n) * n
             self._g = None
             self.n_bucket_growths += 1
         if self._g is None:
@@ -278,14 +319,18 @@ class Backend:
             g.poses[ki:k] = torch.tensor(
                 np.asarray(kf_poses[ki:k], np.float32), device=dev)
             g.kf_mask[ki:k] = True
-        if en < e:
-            g.edge_i[en:e] = torch.tensor(self.edge_i[en:e], device=dev)
-            g.edge_j[en:e] = torch.tensor(self.edge_j[en:e], device=dev)
-            g.edge_T[en:e] = torch.tensor(
-                np.asarray(self.edge_T[en:e], np.float32), device=dev)
-            g.edge_info[en:e] = torch.tensor(
-                1.0 / np.asarray(self.edge_var[en:e], np.float32), device=dev)
-            g.edge_mask[en:e] = True
+        blk = self._edge_block(self._e_bucket)
+        lo, hi = max(en, blk.start), min(e, blk.stop)  # new rows held here
+        if lo < hi:
+            a, b = lo - blk.start, hi - blk.start
+            g.edge_i[a:b] = torch.tensor(self.edge_i[lo:hi], device=dev)
+            g.edge_j[a:b] = torch.tensor(self.edge_j[lo:hi], device=dev)
+            g.edge_T[a:b] = torch.tensor(
+                np.asarray(self.edge_T[lo:hi], np.float32), device=dev)
+            g.edge_info[a:b] = torch.tensor(
+                1.0 / np.asarray(self.edge_var[lo:hi], np.float32),
+                device=dev)
+            g.edge_mask[a:b] = True
         self._k_dev, self._e_dev = k, e
         return g
 
@@ -305,14 +350,15 @@ class Backend:
             eT[:e] = np.asarray(self.edge_T, np.float32)
             einfo[:e] = 1.0 / np.asarray(self.edge_var, np.float32)
         dev = self.device
+        blk = self._edge_block(ec)
         return pgo.PoseGraph(
             poses=torch.tensor(poses, device=dev),
             kf_mask=torch.tensor(np.arange(kc) < k, device=dev),
-            edge_i=torch.tensor(ei, device=dev),
-            edge_j=torch.tensor(ej, device=dev),
-            edge_T=torch.tensor(eT, device=dev),
-            edge_info=torch.tensor(einfo, device=dev),
-            edge_mask=torch.tensor(np.arange(ec) < e, device=dev),
+            edge_i=torch.tensor(ei[blk], device=dev),
+            edge_j=torch.tensor(ej[blk], device=dev),
+            edge_T=torch.tensor(eT[blk], device=dev),
+            edge_info=torch.tensor(einfo[blk], device=dev),
+            edge_mask=torch.tensor((np.arange(ec) < e)[blk], device=dev),
             prior_pose=torch.tensor(np.asarray(self.prior_pose, np.float32),
                                     device=dev),
             prior_info=torch.tensor((1.0 / PRIOR_VAR).astype(np.float32),
@@ -321,10 +367,13 @@ class Backend:
 
     # -- persistence (Backend dtor + g2o I/O) ---------------------------------
     def save(self) -> None:
-        """TUM + g2o save (Backend.cpp:349-358); also persists keyframe pcds."""
+        """TUM + g2o save (Backend.cpp:349-358); also persists keyframe pcds.
+        On a mesh only rank 0 writes."""
+        from ..parallel.mesh import is_writer
+
         self.map_manager.save_kfs()
         self.map_manager.save_trajectory()
-        if not self.save_map_dir:
+        if not self.save_map_dir or not is_writer():
             return
         os.makedirs(self.save_map_dir, exist_ok=True)
         with self.kf_obj.lock:
@@ -376,15 +425,17 @@ class Backend:
         kc, ec = self._k_bucket, self._e_bucket
         dev = self.device
         eye = torch.eye(4, dtype=torch.float32, device=dev)
+        rows = torch.arange(ec, device=dev)[self._edge_block(ec)]
         g = pgo.PoseGraph(
             poses=eye.repeat(kc, 1, 1),
             kf_mask=torch.arange(kc, device=dev) < 2,
-            edge_i=torch.zeros(ec, dtype=torch.int64, device=dev),
-            edge_j=(torch.arange(ec, device=dev) < 1).to(torch.int64),
-            edge_T=eye.repeat(ec, 1, 1),
-            edge_info=torch.ones((ec, 6), dtype=torch.float32, device=dev),
-            edge_mask=torch.arange(ec, device=dev) < 1,
+            edge_i=torch.zeros(len(rows), dtype=torch.int64, device=dev),
+            edge_j=(rows < 1).to(torch.int64),
+            edge_T=eye.repeat(len(rows), 1, 1),
+            edge_info=torch.ones((len(rows), 6), dtype=torch.float32,
+                                 device=dev),
+            edge_mask=rows < 1,
             prior_pose=eye,
             prior_info=torch.ones(6, dtype=torch.float32, device=dev))
         for iters in (4, 12):
-            _pack_solve(pgo.solve(g, max_iters=iters, cg_iters=64)).cpu()
+            _pack_solve(self._solver(iters)(g)).cpu()

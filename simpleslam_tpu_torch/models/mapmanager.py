@@ -32,6 +32,7 @@ import torch
 
 from .. import native
 from ..ops import pointcloud as pcops
+from ..parallel.mesh import is_writer
 from ..utils import fileio
 from ..utils.concurrency import AtomicVar
 from ..utils.config import Params
@@ -161,7 +162,7 @@ class MapManager:
             self.lg.info("reloaded %d keyframes from %s", self.kf_obj.kf_nums, self.save_map_dir)
 
     def save_kfs(self) -> None:
-        if not (self.is_mapping and self.save_map_dir):
+        if not (self.is_mapping and self.save_map_dir and is_writer()):
             return
         os.makedirs(self.save_map_dir, exist_ok=True)
         with self.kf_obj.lock:
@@ -170,7 +171,7 @@ class MapManager:
                 fileio.save_pcd(os.path.join(self.save_map_dir, f"{i}.pcd"), kfs[i].xyz)
 
     def save_trajectory(self) -> None:
-        if not (self.is_mapping and self.save_map_dir):
+        if not (self.is_mapping and self.save_map_dir and is_writer()):
             return
         os.makedirs(self.save_map_dir, exist_ok=True)
         with self.kf_obj.lock:

@@ -41,27 +41,36 @@ def _fetch_result(pose: torch.Tensor, converged: torch.Tensor,
 
 
 def register_kind(ds: PointCloud, target, init_pose: torch.Tensor, kind: str,
-                  degen: float = 0.0):
+                  degen: float = 0.0, reduce_fn=None, rmax_reduce_fn=None,
+                  axis_reduce=None):
     """Dispatch to the configured backend: (pose (4, 4), converged () bool,
     fitness (), iters (), gathers (), support ()), all tensors on the pose's
     device, so the caller decides when to read them. ``gathers`` counts
     neighbourhood sweeps (== iters for NDT and VGICP); ``support`` is the
     final normal-equation row count (0 where the backend has none). Nothing
     in here reads the device: LOAM's loop runs inside one kernel, NDT and
-    VGICP run their step a fixed number of times."""
+    VGICP run their step a fixed number of times.
+
+    With the scan's points sharded over ranks, ``reduce_fn`` and
+    ``rmax_reduce_fn`` serve LOAM (the normal equations' cross-rank sum and
+    the source range's max; its loop then reads one state per iteration)
+    and ``axis_reduce`` (a cross-rank sum of a flat f32 vector) serves NDT
+    and VGICP."""
     dev = init_pose.device
     fit = torch.zeros((), dtype=torch.float32, device=dev)
     if kind == "loam":
-        res = loam_ops.gn_loop(ds, target, init_pose, degen_per_row=degen)
+        res = loam_ops.gn_loop(ds, target, init_pose, degen_per_row=degen,
+                               reduce_fn=reduce_fn,
+                               rmax_reduce_fn=rmax_reduce_fn)
         return (res.pose, res.converged, fit, res.iters, res.n_gathers,
                 res.n_valid)
     no_support = torch.zeros((), dtype=torch.int32, device=dev)
     if kind == "ndt":
-        res = ndt_ops.align(ds, target, init_pose)
+        res = ndt_ops.align(ds, target, init_pose, axis_reduce=axis_reduce)
         return (res.pose, res.converged, fit, res.iters, res.iters,
                 no_support)
     if kind == "vgicp":
-        res = vgicp_ops.align(ds, target, init_pose)
+        res = vgicp_ops.align(ds, target, init_pose, axis_reduce=axis_reduce)
         return (res.pose, res.converged, res.fitness, res.iters, res.iters,
                 no_support)
     raise ValueError(f"unknown registration kind {kind!r}")

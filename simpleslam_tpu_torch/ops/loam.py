@@ -229,7 +229,8 @@ def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
 
 def gn_loop_stepwise(src: PointCloud, vm: Target,
                      init_pose: torch.Tensor, max_iters: int = MAX_ITERS,
-                     degen_per_row: float = 0.0) -> LoamResult:
+                     degen_per_row: float = 0.0, reduce_fn=None,
+                     rmax_reduce_fn=None) -> LoamResult:
     """The GN loop driven from Python: the plain version of the kernel K3.
 
     At the start pose and on every refresh the plane set is fitted and
@@ -244,24 +245,43 @@ def gn_loop_stepwise(src: PointCloud, vm: Target,
     past REGATHER_DIST). ``gn_loop`` takes this path for CPU tensors; on
     CUDA tensors it is counted in ``K3_PLAIN_CUDA_CALLS``, which the main
     paths keep at zero.
+
+    The sharded path (``src`` one rank's block of the scan's points, the
+    target replicated) passes ``reduce_fn``, which reduces (J^T J, J^T e,
+    n_valid) across the ranks after every linearization, and
+    ``rmax_reduce_fn``, which maxes the source range, so every rank takes
+    the same refresh decisions and the same steps. Its calls are counted in
+    ``SHARDED_STEPWISE_CALLS`` instead: K3 cannot take part, because its
+    grid sum is inside one launch.
     """
     from . import loam_kernels as lk
 
     merged = isinstance(vm, MergedDenseVoxelMap)
     if init_pose.is_cuda:
-        lk.K3_PLAIN_CUDA_CALLS += 1
+        if reduce_fn is not None:
+            lk.SHARDED_STEPWISE_CALLS += 1
+        else:
+            lk.K3_PLAIN_CUDA_CALLS += 1
+
+    def reduce(jtj, jte, nv, *rest):
+        if reduce_fn is None:
+            return (jtj, jte, nv, *rest)
+        return (*reduce_fn(jtj, jte, nv), *rest)
 
     def fit_and_linearize(p_map):
         if merged:
-            return lk.fit_and_linearize_merged(vm, p_map, sqrt_r, src.mask)
+            return reduce(*lk.fit_and_linearize_merged(vm, p_map, sqrt_r,
+                                                       src.mask))
         cand, cand_ok = gather_candidates_at(vm, p_map, src.mask)
-        return lk.fit_and_linearize_candidates(cand, cand_ok, p_map, sqrt_r,
-                                               src.mask)
+        return reduce(*lk.fit_and_linearize_candidates(
+            cand, cand_ok, p_map, sqrt_r, src.mask))
 
     pose = init_pose.to(torch.float32)
     sqrt_r = source_sqrt_range(src)
     r_max = torch.amax(torch.where(src.mask, torch.linalg.norm(src.xyz, dim=-1),
                                    torch.zeros_like(sqrt_r)))
+    if rmax_reduce_fn is not None:
+        r_max = rmax_reduce_fn(r_max)
     anchor = pose
     p_map = geo.transform_points(pose, src.xyz)
     JtJ, JtE, n_valid, planes = fit_and_linearize(p_map)
@@ -290,7 +310,8 @@ def gn_loop_stepwise(src: PointCloud, vm: Target,
             anchor = pose
             gathers += 1
         else:
-            JtJ, JtE, n_valid = lk.plane_normal_equations(planes, p_map, sqrt_r)
+            JtJ, JtE, n_valid = reduce(*lk.plane_normal_equations(
+                planes, p_map, sqrt_r))
     counts = torch.tensor([iters, gathers], dtype=torch.int32,
                           device=pose.device)
     return LoamResult(geo.reorthonormalize(pose), converged, counts[0],
@@ -298,18 +319,21 @@ def gn_loop_stepwise(src: PointCloud, vm: Target,
 
 
 def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
-            max_iters: int = MAX_ITERS,
-            degen_per_row: float = 0.0) -> LoamResult:
+            max_iters: int = MAX_ITERS, degen_per_row: float = 0.0,
+            reduce_fn=None, rmax_reduce_fn=None) -> LoamResult:
     """The full GN loop (reference ``LoamRegister::scan2Map``).
 
     On CUDA tensors the whole loop is one launch of K3
     (``loam_kernels.gn_loop_fused``) on any of the three targets, with no
     host read; a failed build or launch, or a target the kernel cannot
     take, raises. On CPU tensors it is K3's plain version
-    ``gn_loop_stepwise``.
+    ``gn_loop_stepwise``. With the sharded path's hooks set (see
+    ``gn_loop_stepwise``) it is the stepwise loop on either device: K1 or
+    K4 on a refresh, K2 otherwise, each followed by the cross-rank sum.
     """
-    if not init_pose.is_cuda:
-        return gn_loop_stepwise(src, vm, init_pose, max_iters, degen_per_row)
+    if not init_pose.is_cuda or reduce_fn is not None:
+        return gn_loop_stepwise(src, vm, init_pose, max_iters, degen_per_row,
+                                reduce_fn, rmax_reduce_fn)
     from . import loam_kernels as lk
 
     row = lk.gn_loop_fused(src.xyz, src.mask, vm,
@@ -322,9 +346,10 @@ def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
 
 
 def scan2map(src: PointCloud, vm: Target, init_pose: torch.Tensor,
-             max_iters: int = MAX_ITERS,
-             degen_per_row: float = 0.0) -> LoamResult:
+             max_iters: int = MAX_ITERS, degen_per_row: float = 0.0,
+             reduce_fn=None, rmax_reduce_fn=None) -> LoamResult:
     """Register ``src`` to the target map from ``init_pose``. A dense map
     must be built with grid >= 2.0 and a sorted table with grid >= 1.0, so
     the gathered neighbourhood covers the 1 m search radius."""
-    return gn_loop(src, vm, init_pose, max_iters, degen_per_row)
+    return gn_loop(src, vm, init_pose, max_iters, degen_per_row, reduce_fn,
+                   rmax_reduce_fn)

@@ -58,6 +58,9 @@ K1_PLAIN_CUDA_CALLS = 0
 K2_PLAIN_CUDA_CALLS = 0
 K3_PLAIN_CUDA_CALLS = 0   # loam.gn_loop_stepwise on CUDA, any target
 K4_PLAIN_CUDA_CALLS = 0
+# the sharded path's stepwise loops on CUDA (loam.gn_loop_stepwise with a
+# cross-rank reduction): their K1, K2 and K4 launches are that path's own
+SHARDED_STEPWISE_CALLS = 0
 
 # K3's result row: the pose (4x4 row-major), then these
 GN_ROW = 20
@@ -66,10 +69,10 @@ GN_CONVERGED, GN_ITERS, GN_GATHERS, GN_N_VALID = 16, 17, 18, 19
 def reset_counts() -> None:
     global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
     global K1_PLAIN_CUDA_CALLS, K2_PLAIN_CUDA_CALLS, K3_PLAIN_CUDA_CALLS
-    global K4_PLAIN_CUDA_CALLS
+    global K4_PLAIN_CUDA_CALLS, SHARDED_STEPWISE_CALLS
     K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
     K1_PLAIN_CUDA_CALLS = K2_PLAIN_CUDA_CALLS = K3_PLAIN_CUDA_CALLS = 0
-    K4_PLAIN_CUDA_CALLS = 0
+    K4_PLAIN_CUDA_CALLS = SHARDED_STEPWISE_CALLS = 0
 
 
 # ---------------------------------------------------------------------------

@@ -202,14 +202,32 @@ def _done(state: _State, max_iters: int) -> torch.Tensor:
     return state.conv | (state.iters >= max_iters)
 
 
+def _reduced_terms(src: PointCloud, target: NdtTarget, pose: torch.Tensor,
+                   d1: float, d2: float, axis_reduce=None):
+    """``score_terms``, summed across the ranks by ``axis_reduce`` (a
+    cross-rank sum of a flat f32 vector) in one 44-float collective when
+    the scan's points are sharded."""
+    H, g, score, n = score_terms(src, target.gauss, target.precisions, pose,
+                                 d1, d2)
+    if axis_reduce is None:
+        return H, g, score, n
+    flat = axis_reduce(torch.cat([H.reshape(36), g, score.reshape(1),
+                                  n.to(torch.float32).reshape(1)]))
+    return (flat[:36].reshape(6, 6), flat[36:42], flat[42],
+            flat[43].to(torch.int32))
+
+
 def _step(src: PointCloud, target: NdtTarget, d1: float, d2: float,
-          alphas: torch.Tensor, max_iters: int, state: _State) -> _State:
+          alphas: torch.Tensor, max_iters: int, state: _State,
+          axis_reduce=None) -> _State:
     """One damped Newton iteration with the batched line search; a done
-    state comes back untouched."""
+    state comes back untouched. With ``axis_reduce`` the step costs two
+    collectives: the 44 floats of the terms, then the six line-search
+    scores (which depend on the reduced step)."""
     pose, it, conv, lam = state
     gvm, precisions = target
     done = _done(state, max_iters)
-    H, g, score, n = score_terms(src, gvm, precisions, pose, d1, d2)
+    H, g, score, n = _reduced_terms(src, target, pose, d1, d2, axis_reduce)
     diag = torch.clamp(torch.abs(torch.diagonal(H)), min=1e-6)
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
     # solve_ex: no error check on the host, so no synchronisation
@@ -217,6 +235,8 @@ def _step(src: PointCloud, target: NdtTarget, d1: float, d2: float,
         H + (lam * 1e-4) * torch.diag(diag) + 1e-6 * eye, -g).result
     cand = geo.pose_compose(geo.se3_exp(alphas[:, None] * dx[None, :]), pose)
     cand_scores = score_only(src, gvm, precisions, cand, d1, d2)
+    if axis_reduce is not None:
+        cand_scores = axis_reduce(cand_scores)
     # first minimum on ties; picked with index_select, because indexing by a
     # 0-dim tensor reads it on the host
     best = torch.argmin(cand_scores).reshape(1)
@@ -233,14 +253,20 @@ def _step(src: PointCloud, target: NdtTarget, d1: float, d2: float,
 
 
 def align(src: PointCloud, target: NdtTarget, init_pose: torch.Tensor,
-          max_iters: int = MAX_ITERS, early_exit: bool = False) -> NdtResult:
+          max_iters: int = MAX_ITERS, early_exit: bool = False,
+          axis_reduce=None) -> NdtResult:
     """Damped Newton + batched line search on the NDT score.
 
     The step runs ``max_iters`` times with nothing read from the device
     (what the streamed batch needs); with ``early_exit`` the loop reads
     the state's stop test after each step and leaves the loop once it holds
     (one host read per iteration, for the per-scan paths). Both give the
-    same result, fields as 0-dim tensors."""
+    same result, fields as 0-dim tensors.
+
+    ``axis_reduce`` (``src`` one rank's block of the scan's points): a
+    cross-rank sum of a flat f32 vector; the sums of every step, the final
+    terms and the point count go through it. The fixed-count form keeps
+    the collectives per scan fixed (2 per step, 2 at the end)."""
     d1, d2 = _gauss_coeffs(1.0)              # NdtRegister.cpp:13 uses 1.0
     dev = init_pose.device
     alphas = _constants(dev)[1]
@@ -251,10 +277,15 @@ def align(src: PointCloud, target: NdtTarget, init_pose: torch.Tensor,
     for _ in range(max_iters):
         if early_exit and bool(_done(state, max_iters)):
             break
-        state = _step(src, target, d1, d2, alphas, max_iters, state)
+        state = _step(src, target, d1, d2, alphas, max_iters, state,
+                      axis_reduce)
     pose = geo.reorthonormalize(state.pose)
-    _, _, final_score, n = score_terms(src, target.gauss, target.precisions,
-                                       pose, d1, d2)
-    n_pts = torch.clamp(torch.sum(src.mask, dtype=torch.int32), min=1)
+    _, _, final_score, n = _reduced_terms(src, target, pose, d1, d2,
+                                          axis_reduce)
+    n_pts = torch.sum(src.mask, dtype=torch.int32)
+    if axis_reduce is not None:
+        n_pts = axis_reduce(n_pts.to(torch.float32).reshape(1))[0].to(
+            torch.int32)
+    n_pts = torch.clamp(n_pts, min=1)
     trans_prob = -final_score / n_pts.to(torch.float32)
     return NdtResult(pose, state.conv & (n >= 6), state.iters, trans_prob)

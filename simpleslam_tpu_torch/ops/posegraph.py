@@ -1,11 +1,17 @@
 """Batched SE(3) pose-graph solver (the GTSAM/iSAM2 role), on torch tensors.
 
-Port of ``simpleslam_tpu/ops/posegraph.py`` for one device: the factor
-graph is a padded edge tensor, residuals and Jacobians are one batched
-forward-mode autodiff evaluation (``torch.func.vmap`` of ``jacfwd``), and
-Levenberg-Marquardt steps solve ``(H + lambda D) dx = -g`` densely for
-K <= DENSE_SOLVE_MAX_K nodes, else by block-Jacobi preconditioned conjugate
-gradient on the block-sparse 6x6 form.
+Port of ``simpleslam_tpu/ops/posegraph.py``: the factor graph is a padded
+edge tensor, residuals and Jacobians are one batched forward-mode autodiff
+evaluation (``torch.func.vmap`` of ``jacfwd``), and Levenberg-Marquardt
+steps solve ``(H + lambda D) dx = -g`` densely for K <= DENSE_SOLVE_MAX_K
+nodes on one device, else by block-Jacobi preconditioned conjugate gradient
+on the block-sparse 6x6 form.
+
+Edge-sharded solves (``axis``: a ``parallel.mesh.Axis``; the graph's edge
+tensors are this rank's contiguous block, poses and prior replicated) have
+the reference's three distribution modes (see ``_linearize_full``); their
+cross-rank sums are gathers summed in rank order, so every rank holds the
+same bits. With an axis the inner solve is always PCG, as in the reference.
 
 Conventions (as the reference package):
 - twist ordering [rho (trans), w (rot)];
@@ -125,11 +131,16 @@ def _linearize_prior(g: PoseGraph):
     return r, Jp
 
 
-def graph_cost(g: PoseGraph) -> torch.Tensor:
-    """Total chi2 = sum_e r^T W r + prior (the GTSAM error function role)."""
+def graph_cost(g: PoseGraph, axis=None) -> torch.Tensor:
+    """Total chi2 = sum_e r^T W r + prior (the GTSAM error function role).
+    With ``axis`` (edges sharded) the edge sum is summed across the ranks;
+    the prior is added once, after."""
     r = _edge_residuals(g)
     rp, _ = _linearize_prior(g)
-    return torch.sum(r * r * g.edge_info) + torch.sum(rp * rp * g.prior_info)
+    edge_chi2 = torch.sum(r * r * g.edge_info)
+    if axis is not None:
+        edge_chi2 = axis.gather_sum(edge_chi2)
+    return edge_chi2 + torch.sum(rp * rp * g.prior_info)
 
 
 class _Tables(NamedTuple):
@@ -163,11 +174,16 @@ def _group_table(keys: np.ndarray):
 
 def _tables(g: PoseGraph) -> _Tables:
     """Topology tables from one host read of the edge indices and masks."""
-    K = g.poses.shape[0]
-    ei = g.edge_i.cpu().numpy().astype(np.int64)
-    ej = g.edge_j.cpu().numpy().astype(np.int64)
-    emask = g.edge_mask.cpu().numpy()
-    kmask = g.kf_mask.cpu().numpy()
+    return _tables_from(g.edge_i, g.edge_j, g.edge_mask, g.kf_mask)
+
+
+def _tables_from(edge_i, edge_j, edge_mask, kf_mask) -> _Tables:
+    """``_tables`` of a topology given as tensors (one host read)."""
+    K = kf_mask.shape[0]
+    ei = edge_i.cpu().numpy().astype(np.int64)
+    ej = edge_j.cpu().numpy().astype(np.int64)
+    emask = edge_mask.cpu().numpy()
+    kmask = kf_mask.cpu().numpy()
     E = len(ei)
     ends = np.concatenate([ei, ej])
     live = np.concatenate([emask, emask])
@@ -181,7 +197,7 @@ def _tables(g: PoseGraph) -> _Tables:
     sel = np.nonzero(np.concatenate([pl, pl]))[0]
     pair_key, t = _group_table(keys[sel])
     pair = np.where(t >= 0, sel[np.clip(t, 0, None)], 2 * E)
-    dev = g.poses.device
+    dev = kf_mask.device
     return _Tables(torch.from_numpy(node).to(dev),
                    torch.from_numpy(pair_key).to(dev),
                    torch.from_numpy(pair).to(dev))
@@ -204,9 +220,49 @@ class _Lin(NamedTuple):
     ej: torch.Tensor     # (E,)
 
 
-def _linearize_full(g: PoseGraph, poses: torch.Tensor, tab: _Tables) -> _Lin:
-    """Linearize + assemble the block-sparse normal equations (single
-    device; the prior is added to node 0 after the edge sums)."""
+class _Topo(NamedTuple):
+    """An edge-sharded solve's topologies: ``local`` over this rank's edges,
+    ``full`` over every rank's (gathered once per solve), with the full
+    edge index vectors."""
+
+    local: _Tables
+    full: _Tables
+    ei: torch.Tensor
+    ej: torch.Tensor
+
+
+def _gather_topology(g: PoseGraph, axis) -> _Topo:
+    """One gather of every rank's (edge_i, edge_j, edge_mask)."""
+    mine = torch.stack([g.edge_i.to(torch.int64), g.edge_j.to(torch.int64),
+                        g.edge_mask.to(torch.int64)])
+    full = axis.all_gather(mine).permute(1, 0, 2).reshape(3, -1)
+    return _Topo(_tables(g), _tables_from(full[0], full[1], full[2] > 0,
+                                          g.kf_mask), full[0], full[1])
+
+
+def _linearize_full(g: PoseGraph, poses: torch.Tensor, tab: _Tables,
+                    axis=None, shard_cg: bool = False,
+                    shard_lin: bool = False,
+                    topo: _Topo = None) -> _Lin:
+    """Linearize + assemble the block-sparse normal equations; the prior is
+    added to node 0 after the edge sums.
+
+    With ``axis`` (``g``'s edges are this rank's block, ``topo`` its
+    topologies) the per-edge work runs on this rank's edges only, in one of
+    three modes, as in the reference package:
+
+    - replicated CG (neither flag): the compact per-edge summary (E_local,
+      121) = [H_ii, H_jj, H_ij, g_i, g_j, chi2] is gathered once (the edge
+      ends come from the topology, gathered once per solve), and every
+      rank assembles the full system and runs CG with no collective;
+    - sharded CG (``shard_cg``): the off-diagonal blocks stay on their
+      rank; the (K, 43) node sums [grad, block diagonal, chi2] are summed
+      across the ranks in one collective, and the CG matvec sums its
+      off-diagonal part per iteration (``_make_hvp``, ``_pcg_ksharded``);
+    - sharded linearization (``shard_lin``): as sharded CG here, and the
+      solve gathers the off-diagonal blocks once per LM iteration so that
+      CG runs replicated (``solve_impl``).
+    """
     gg = g._replace(poses=poses)
     r, Ji, Jj = _linearize_edges(gg)
     rp, Jp = _linearize_prior(gg)
@@ -218,26 +274,53 @@ def _linearize_full(g: PoseGraph, poses: torch.Tensor, tab: _Tables) -> _Lin:
     gi = torch.einsum("eab,ea->eb", wi, r)
     gj = torch.einsum("eab,ea->eb", wj, r)
     chi2 = torch.sum(r * r * gg.edge_info, dim=1)
+    ei, ej = gg.edge_i, gg.edge_j
+    sharded_nodes = axis is not None and (shard_cg or shard_lin)
+    if axis is not None and not sharded_nodes:
+        packed = torch.cat([bii.reshape(-1, 36), bjj.reshape(-1, 36),
+                            bij.reshape(-1, 36), gi, gj, chi2[:, None]],
+                           dim=1)                        # (E_local, 121)
+        packed = axis.all_gather(packed).reshape(-1, 121)
+        bii = packed[:, :36].reshape(-1, 6, 6)
+        bjj = packed[:, 36:72].reshape(-1, 6, 6)
+        bij = packed[:, 72:108].reshape(-1, 6, 6)
+        gi, gj, chi2 = packed[:, 108:114], packed[:, 114:120], packed[:, 120]
+        ei, ej, tab = topo.ei, topo.ej, topo.full
     grad = _node_sum(tab, gi, gj)
     diag = _node_sum(tab, bii, bjj)
+    cost = torch.sum(chi2)
+    if sharded_nodes:
+        K = grad.shape[0]
+        cost_col = torch.zeros((K, 1), dtype=grad.dtype, device=grad.device)
+        cost_col[0, 0] = cost
+        packed = axis.gather_sum(torch.cat([grad, diag.reshape(K, 36), cost_col],
+                                    dim=1))              # (K, 43)
+        grad = packed[:, :6]
+        diag = packed[:, 6:42].reshape(K, 6, 6)
+        cost = packed[0, 42]
     wp = Jp * g.prior_info[:, None]
     grad = torch.cat([grad[:1] + torch.einsum("ab,a->b", wp, rp), grad[1:]])
     diag = torch.cat([diag[:1] + torch.einsum("ab,ac->bc", wp, Jp)[None],
                       diag[1:]])
-    cost = torch.sum(chi2) + torch.sum(rp * rp * g.prior_info)
-    return _Lin(cost, grad, diag, bij, gg.edge_i, gg.edge_j)
+    cost = cost + torch.sum(rp * rp * g.prior_info)
+    return _Lin(cost, grad, diag, bij, ei, ej)
 
 
-def _make_hvp(lin: _Lin, lam: torch.Tensor, tab: _Tables):
+def _make_hvp(lin: _Lin, lam: torch.Tensor, tab: _Tables, axis=None):
     """(H + lambda diag(H)) v from the block-sparse form: the off-diagonal
-    blocks contribute H[i,j] v_j at i and H[i,j]^T v_i at j."""
+    blocks contribute H[i,j] v_j at i and H[i,j]^T v_i at j. With ``axis``
+    the blocks are this rank's and their (K, 6) contribution is summed
+    across the ranks; the replicated diagonal and damping act after."""
     damp = lam * torch.diagonal(lin.diag, dim1=-2, dim2=-1)   # (K, 6)
     damp = torch.maximum(damp, lam * 1e-6)
 
     def hvp(v):  # v: (K, 6)
         ui = torch.einsum("eab,eb->ea", lin.bij, v[lin.ej])  # at i
         uj = torch.einsum("eab,ea->eb", lin.bij, v[lin.ei])  # at j (B^T v_i)
-        out = torch.einsum("kab,kb->ka", lin.diag, v) + _node_sum(tab, ui, uj)
+        off = _node_sum(tab, ui, uj)
+        if axis is not None:
+            off = axis.gather_sum(off)
+        out = torch.einsum("kab,kb->ka", lin.diag, v) + off
         return out + damp * v
 
     return hvp
@@ -268,6 +351,76 @@ def _dense_lm_solve(lin: _Lin, damped_diag, grad, mask, tab: _Tables):
     b = (-grad * m).reshape(K * 6)
     dx = torch.linalg.solve(H, b).reshape(K, 6)
     return dx * m
+
+
+def _pcg_ksharded(lin: _Lin, lam, damped_diag, mask, iters: int, axis,
+                  tab: _Tables, tol: float = 1e-8,
+                  rel_tol: float = 1e-2) -> torch.Tensor:
+    """Fully sharded PCG of the ``shard_cg`` mode: the CG vectors split over
+    K (this rank owns K/n nodes, so K must divide by the axis size) and the
+    off-diagonal blocks over E, with two collectives per iteration:
+
+    A: a gather of [z | p_prev | rz partial] — beta and the new direction
+       are formed after it, so the rz dot product rides with the vectors;
+    B: a cross-rank sum of [off-diagonal H p partial | p.Hp diagonal
+       partial] — the matvec and alpha's dot product in one.
+
+    The stop test reads the previous iteration's rz (one iteration late at
+    most, no collective of its own). Every iteration runs and the state
+    freezes at the stop, so every rank issues the same collectives. Returns
+    the full dx (one final gather)."""
+    K = lin.grad.shape[0]
+    kn = K // axis.size
+    sl = slice(axis.index * kn, (axis.index + 1) * kn)
+    b = -lin.grad
+    dt = b.dtype
+    m_sl = mask[sl][:, None].to(dt)
+    pinv_sl = torch.linalg.inv(damped_diag[sl])      # this rank's slice only
+    diag_sl = lin.diag[sl]
+    damp_sl = torch.maximum(
+        lam * torch.diagonal(diag_sl, dim1=-2, dim2=-1), lam * 1e-6)
+
+    def apply_p(r_sl):
+        return torch.einsum("kab,kb->ka", pinv_sl, r_sl) * m_sl
+
+    x = torch.zeros((kn, 6), dtype=dt, device=b.device)
+    r = b[sl] * m_sl
+    z = apply_p(r)
+    p_prev = torch.zeros_like(x)
+    rz_part = torch.sum(r * z)
+    rz_prev = axis.gather_sum(rz_part)
+    floor = torch.clamp(rel_tol * rel_tol * rz_prev, min=tol)
+    for it in range(iters):
+        active = rz_prev > floor
+        packed = torch.cat([z, p_prev, (rz_part / kn).expand(kn, 1)], dim=1)
+        gathered = axis.all_gather(packed).reshape(K, 13)
+        z_full, p_prev_full = gathered[:, :6], gathered[:, 6:12]
+        rz = torch.sum(gathered[:, 12])
+        beta = (torch.zeros_like(rz) if it == 0
+                else rz / torch.clamp(rz_prev, min=1e-30))
+        p_full = z_full + beta * p_prev_full
+        p = z + beta * p_prev
+        ui = torch.einsum("eab,eb->ea", lin.bij, p_full[lin.ej])
+        uj = torch.einsum("eab,ea->eb", lin.bij, p_full[lin.ei])
+        off = _node_sum(tab, ui, uj)
+        diag_term = torch.einsum("kab,kb->ka", diag_sl, p) + damp_sl * p
+        pHp_diag_part = torch.sum(p * diag_term)
+        red = axis.gather_sum(torch.cat([off, (pHp_diag_part / K).expand(K, 1)],
+                                 dim=1))
+        off_full = red[:, :6]
+        Hp = (off_full[sl] + diag_term) * m_sl
+        pHp = torch.sum(p_full * off_full) + torch.sum(red[:, 6])
+        alpha = rz / torch.clamp(pHp, min=1e-30)
+        x1 = x + alpha * p
+        r1 = r - alpha * Hp
+        z1 = apply_p(r1)
+        x = torch.where(active, x1, x)
+        r = torch.where(active, r1, r)
+        z = torch.where(active, z1, z)
+        p_prev = torch.where(active, p, p_prev)
+        rz_part = torch.where(active, torch.sum(r1 * z1), rz_part)
+        rz_prev = torch.where(active, rz, rz_prev)
+    return axis.all_gather(x).reshape(K, 6)
 
 
 def _pcg(hvp, b, precond_inv, mask, iters: int, tol: float = 1e-8,
@@ -304,20 +457,61 @@ def _pcg(hvp, b, precond_inv, mask, iters: int, tol: float = 1e-8,
 
 
 def solve_impl(g: PoseGraph, max_iters: int = 10, cg_iters: int = 64,
-               lambda0: float = 1e-4) -> SolveResult:
+               lambda0: float = 1e-4, axis=None, shard_cg: bool = False,
+               shard_lin: bool = False) -> SolveResult:
     """Levenberg-Marquardt with dense or PCG inner solves.
 
     Per LM iteration: solve the damped normal equations of the carried
     linearization, apply ``T_k exp(dx_k)``, linearize at the trial and
     accept iff chi2 drops (lambda /= 4, keep the trial's linearization)
     else reject (lambda *= 8). The loop runs while ``lambda < 1e5``.
+
+    With ``axis`` the edges are sharded (see ``_linearize_full`` for the
+    modes ``shard_cg`` and ``shard_lin``): collectives per solve are
+    2 + iterations in the replicated-CG mode (the topology, then each
+    linearization), about iterations x (3 + 2 cg_iters) with ``shard_cg``.
+    Every iteration runs, so every rank issues the same collectives.
     """
     K = g.poses.shape[0]
     dt, dev = g.poses.dtype, g.poses.device
     tab = _tables(g)
+    topo = None
+    n_dev = axis.size if axis is not None else 1
+    if axis is not None and not (shard_cg and not shard_lin):
+        topo = _gather_topology(g, axis)
     eye = torch.eye(6, dtype=dt, device=dev).expand(K, 6, 6)
-    lin0 = _linearize_full(g, g.poses, tab)
-    use_dense = K <= DENSE_SOLVE_MAX_K
+
+    def linearize(poses):
+        return _linearize_full(g, poses, tab, axis, shard_cg, shard_lin,
+                               topo)
+
+    lin0 = linearize(g.poses)
+    use_dense = axis is None and K <= DENSE_SOLVE_MAX_K
+    ksharded = (axis is not None and shard_cg and not shard_lin
+                and K % n_dev == 0 and n_dev > 1)
+    # the tables the carried linearization's off-diagonal blocks index:
+    # every rank's in the replicated-CG mode, this rank's otherwise
+    lin_tab = topo.full if (axis is not None and not (shard_cg or shard_lin)) \
+        else tab
+    # shard_cg's matvec sums its off-diagonal part across the ranks;
+    # shard_lin gathers the blocks instead and runs CG with no collective
+    hvp_axis = axis if (axis is not None and shard_cg and not shard_lin) \
+        else None
+
+    def precond_inv(damped_diag):
+        if axis is None or not shard_cg or K % n_dev != 0 or n_dev == 1:
+            return torch.linalg.inv(damped_diag)
+        # the K 6x6 inversions split over the ranks, one gather
+        sl = axis.shard(K)
+        return axis.all_gather(torch.linalg.inv(damped_diag[sl])).reshape(
+            K, 6, 6)
+
+    def expand(lin: _Lin) -> _Lin:
+        """shard_lin: every rank's off-diagonal blocks of the carried
+        linearization, one gather per LM iteration (the carry keeps this
+        rank's)."""
+        bij = axis.all_gather(lin.bij.reshape(-1, 36)).reshape(-1, 6, 6)
+        return lin._replace(bij=bij, ei=topo.ei, ej=topo.ej)
 
     poses, lin = g.poses, lin0
     lam = torch.tensor(lambda0, dtype=dt, device=dev)
@@ -328,14 +522,20 @@ def solve_impl(g: PoseGraph, max_iters: int = 10, cg_iters: int = 64,
         damped_diag = lin.diag + lam * (lin.diag * eye) + 1e-8 * eye
         if use_dense:
             dx = _dense_lm_solve(lin, damped_diag, lin.grad, g.kf_mask, tab)
+        elif ksharded:
+            dx = _pcg_ksharded(lin, lam, damped_diag, g.kf_mask, cg_iters,
+                               axis, tab)
         else:
-            hvp = _make_hvp(lin, lam, tab)
-            dx = _pcg(hvp, -lin.grad, torch.linalg.inv(damped_diag),
-                      g.kf_mask, cg_iters)
+            pinv = precond_inv(damped_diag)
+            if axis is not None and shard_lin:
+                hvp = _make_hvp(expand(lin), lam, topo.full)
+            else:
+                hvp = _make_hvp(lin, lam, lin_tab, hvp_axis)
+            dx = _pcg(hvp, -lin.grad, pinv, g.kf_mask, cg_iters)
         trial = geo.reorthonormalize(
             geo.pose_compose(poses, geo.se3_exp(dx)))
         trial = torch.where(g.kf_mask[:, None, None], trial, poses)
-        lin_t = _linearize_full(g, trial, tab)
+        lin_t = linearize(trial)
         accept = active & (lin_t.cost < lin.cost)
         poses = torch.where(accept, trial, poses)
         lin = _Lin(*(torch.where(accept, new, old)

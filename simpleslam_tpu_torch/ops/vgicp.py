@@ -196,9 +196,16 @@ def _step(lin, max_iters: int, eps: float, state: _State) -> _State:
 
 def _align_impl(src: PointCloud, src_covs, src_valid, target: VgicpTarget,
                 init_pose: torch.Tensor, max_iters: int, eps: float,
-                early_exit: bool) -> VgicpResult:
+                early_exit: bool, axis_reduce=None) -> VgicpResult:
     def lin(p):
-        return _linearize(src, src_covs, src_valid, target, p)
+        H, g, cost, n = _linearize(src, src_covs, src_valid, target, p)
+        if axis_reduce is None:
+            return H, g, cost, n
+        # one 44-float collective per linearization
+        flat = axis_reduce(torch.cat([H.reshape(36), g, cost.reshape(1),
+                                      n.to(torch.float32).reshape(1)]))
+        return (flat[:36].reshape(6, 6), flat[36:42], flat[42],
+                flat[43].to(torch.int32))
 
     pose0 = init_pose.to(torch.float32)
     dev = pose0.device
@@ -211,35 +218,50 @@ def _align_impl(src: PointCloud, src_covs, src_valid, target: VgicpTarget,
             break
         state = _step(lin, max_iters, eps, state)
     pose = geo.reorthonormalize(state.pose)
-    fit = fitness_score(src, target.pts, pose)
+    fit = fitness_score(src, target.pts, pose, axis_reduce)
     return VgicpResult(pose, state.conv & (state.n >= 6), state.iters, fit)
 
 
 def align(src: PointCloud, target: VgicpTarget, init_pose: torch.Tensor,
-          lc_mode: bool = False, early_exit: bool = False) -> VgicpResult:
+          lc_mode: bool = False, early_exit: bool = False,
+          axis_reduce=None) -> VgicpResult:
     """Register ``src`` to ``target`` from ``init_pose``; ``lc_mode`` takes
     the loosened loop-closure budget (100 iterations, epsilon 1e-6).
 
     The step runs its full count with nothing read from the device (what
     the streamed batch needs); with ``early_exit`` the loop reads the
     state's stop test after each step and leaves the loop once it holds.
-    Both give the same result, fields as 0-dim tensors."""
+    Both give the same result, fields as 0-dim tensors.
+
+    ``axis_reduce`` (``src`` one rank's block of the scan's points): a
+    cross-rank sum of a flat f32 vector, one 44-float collective per
+    linearization and one of two floats for the fitness. The source
+    covariances come from the block's own neighbourhood window, as in the
+    reference package: the host prep sorts a scan's points spatially, so a
+    block is a spatially coherent piece of the scan and only voxels on its
+    border see a thinned neighbourhood, which the PLANE regularization
+    (it keeps only the eigenvector frame) hardly feels."""
     src_covs, src_valid = source_covariances(src)
     if lc_mode:
         return _align_impl(src, src_covs, src_valid, target, init_pose,
-                           LC_MAX_ITERS, LC_CONVERGE_EPS, early_exit)
+                           LC_MAX_ITERS, LC_CONVERGE_EPS, early_exit,
+                           axis_reduce)
     return _align_impl(src, src_covs, src_valid, target, init_pose,
-                       MAX_ITERS, CONVERGE_EPS, early_exit)
+                       MAX_ITERS, CONVERGE_EPS, early_exit, axis_reduce)
 
 
 def fitness_score(src: PointCloud, target_pts: DenseVoxelMap,
-                  pose: torch.Tensor) -> torch.Tensor:
+                  pose: torch.Tensor, axis_reduce=None) -> torch.Tensor:
     """Mean squared NN distance of the aligned source (PCL getFitnessScore),
     with the NN search bounded by the target grid's radius-1 neighbourhood;
-    unmatched points are left out of the mean."""
+    unmatched points are left out of the mean. ``axis_reduce`` sums the
+    numerator and the count across the ranks of a sharded scan."""
     p_map = geo.transform_points(pose, src.xyz)
     sq, _, valid = knn_dense(target_pts, p_map, src.mask, k=1, radius=1)
     ok = valid[:, 0] & src.mask
     num = torch.sum(torch.where(ok, sq[:, 0], torch.zeros_like(sq[:, 0])))
     den = torch.sum(ok.to(torch.float32))
+    if axis_reduce is not None:
+        flat = axis_reduce(torch.stack([num, den]))
+        num, den = flat[0], flat[1]
     return num / torch.clamp(den, min=1.0)

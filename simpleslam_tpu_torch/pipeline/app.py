@@ -10,8 +10,12 @@ inline at their event points; ``main --streamed`` drives
 resident-thread form. The input is the synthetic world, a recorded ROS1 bag
 (``--bag``) or a KITTI velodyne directory (``--kitti``), both read by
 ``pipeline/bagio.py``; with ``vis.enable`` the aligned scans go to
-``pipeline/vis.py``. Multi-device runs are not ported yet: a config that
-asks for them is refused, never run as a reduced pipeline.
+``pipeline/vis.py``.
+
+``tpu.mesh_devices = n`` runs on ``n`` ``torch.distributed`` ranks, one
+process each: ``main`` starts them itself (``parallel.multihost.run_hosts``)
+or, under ``torchrun``, joins the group the environment describes. Every
+rank runs the same replay; rank 0 writes the artifacts and the report.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from ..models.frontend import Frontend
 from ..models.lidarodometry import LidarOdometry
 from ..models.mapmanager import MapManager
 from ..models.registration import make_register
+from ..parallel.mesh import check_world, group_is_up, is_writer
 from ..utils.config import Params
 from ..utils.logging import Logger
 from ..utils.profiling import annotate, trace
@@ -43,13 +48,6 @@ class SlamResult:
     extras: dict = field(default_factory=dict)
 
 
-def _check_ported(cfg: dict) -> None:
-    if int(cfg["tpu"].get("mesh_devices", 0)):
-        raise NotImplementedError(
-            "multi-device execution (tpu.mesh_devices > 0) is not ported to "
-            "simpleslam_tpu_torch yet (ROADMAP item 12); set it to 0")
-
-
 class SlamSystem:
     """Object graph owner (app/main.cpp:103-139 role)."""
 
@@ -57,13 +55,15 @@ class SlamSystem:
         if config is not None:
             Params.load(config)
         cfg = Params.get_instance()
-        _check_ported(cfg)
+        # a mesh of n > 1 ranks needs its process group up (raises, naming
+        # the launchers, when it is not)
+        check_world(int(cfg["tpu"].get("mesh_devices", 0)))
         self.cfg = cfg
         self.lg = Logger.get_instance()
         self.mode = cfg["mode"]
 
         self.vis = None
-        if cfg["vis"].get("enable", False):
+        if cfg["vis"].get("enable", False) and is_writer():
             from .vis import Vis
 
             self.vis = Vis(out_dir=cfg["vis"].get("out_dir") or None)
@@ -202,10 +202,22 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
     )
 
 
+def _rank_main(payload: dict, num_processes: int, process_id: int) -> dict:
+    """One rank of a multi-device CLI run (``parallel.multihost``)."""
+    return {"rc": main(payload["argv"])}
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     """CLI: one end-to-end replay (offline, or ``--streamed``) of the
-    synthetic world, a recorded bag or a KITTI velodyne directory."""
+    synthetic world, a recorded bag or a KITTI velodyne directory.
+
+    With ``tpu.mesh_devices = n > 1`` outside a process group, it runs the
+    same command on ``n`` ranks it starts (torchrun's environment, when
+    present, names the group instead), prints rank 0's output and returns
+    rank 0's code."""
     import argparse
+    import os
+    import sys
 
     ap = argparse.ArgumentParser(description="simpleslam_tpu_torch offline replay")
     ap.add_argument("--config", default=None, help="params.json path")
@@ -239,7 +251,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.out:
         cfg["saveMapDir"] = args.out
     Params.load(cfg)
-    _check_ported(cfg)
+    n_ranks = int(cfg["tpu"].get("mesh_devices", 0))
+    if n_ranks > 1 and not group_is_up():
+        from ..parallel import multihost
+
+        dev_type = "cuda" if str(cfg["torch"]["device"]).startswith("cuda") \
+            else "cpu"
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+            multihost.init_from_env(dev_type)
+        else:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            try:
+                res = multihost.run_hosts(n_ranks, f"{__name__}:_rank_main",
+                                          {"argv": argv}, timeout=1e9,
+                                          device=dev_type)
+            finally:
+                for i, (out, _) in enumerate(multihost.LAST_LOGS[:1]):
+                    print(out, end="")
+            return int(res[0]["rc"])
 
     lg = Logger.get_instance()
     if args.bag:
@@ -269,6 +298,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             result = run_offline(system, streams, progress=True)
     system.shutdown()
 
+    if not is_writer():
+        return 0
     ate = rpe = float("nan")  # recorded data carries no inline ground truth
     if has_gt:
         ate = sim.ate_rmse(streams.gt_poses, result.poses)

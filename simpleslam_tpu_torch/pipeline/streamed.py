@@ -36,8 +36,15 @@ device):
 The reference's one-program ``lax.scan`` over the batch is a Python loop
 over its scans here that only enqueues device work (the GN loop and its exit
 tests run inside K3; NDT and VGICP run their iteration a fixed number of
-times with a frozen state once done). Not ported yet: the mesh-sharded batch
-(``tpu.mesh_devices``, ROADMAP item 12).
+times with a frozen state once done).
+
+With ``tpu.mesh_devices = n`` the pipeline runs SPMD on the ``n`` ranks of
+a ``torch.distributed`` process group (``make_sharded_batch``): each rank
+registers its contiguous block of every scan's points against the
+replicated target, with one cross-rank sum per GN iteration, and holds the
+rest (pose chain, keyframes, submap, backend) in full. On more than one
+rank the backend runs inline at the batch boundaries (the
+``tpu.sync_backend`` schedule, see ``run_streamed``).
 """
 
 from __future__ import annotations
@@ -87,8 +94,13 @@ def upload_cloud(raw_q: torch.Tensor) -> PointCloud:
 def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
                 pose_prev2: torch.Tensor, odom2map: torch.Tensor, kind: str,
                 clamp: bool, degen: float, jump_cap: float = 0.0,
-                local_odoms: Optional[torch.Tensor] = None):
+                local_odoms: Optional[torch.Tensor] = None, reduce_fn=None,
+                rmax_reduce_fn=None, axis_reduce=None):
     """K odometry steps on the device chain.
+
+    The three hooks are those of ``register_kind``: set by
+    ``make_sharded_batch``, where ``ds_stack`` holds this rank's block of
+    each scan's points.
 
     ``ds_stack`` is (K, C, 3) int16 host-prepped scans (validity from the
     UPLOAD_PAD sentinel). ``local_odoms`` is the (K, 4, 4) EKF local
@@ -124,7 +136,8 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
             step = geo.make_pose(step[:3, :3], st_t * scale)
             init = geo.pose_compose(prev, step)
         pose, conv, fit, iters, gathers, support = register_kind(
-            pc, target, init, kind, degen)
+            pc, target, init, kind, degen, reduce_fn, rmax_reduce_fn,
+            axis_reduce)
         if clamp:  # planar clamp each frame (frontend.planar_clamp config)
             pose = geo.six_dof_to_mobile(pose)
         # NaN safety is unconditional (one non-finite pose poisons the
@@ -145,6 +158,36 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
         rows.append(torch.cat([pose.reshape(16), tail]))
         prev2, prev = prev, pose
     return (prev, prev2, o2m), torch.stack(rows)
+
+
+def make_sharded_batch(mesh, kind: str, mode: str, clamp: bool, degen: float,
+                       axis: str = "dp", jump_cap: float = 0.0):
+    """The batch with scan points sharded over the ranks of ``axis``:
+    ``fn(ds_block, local_odoms, target, pose_prev, pose_prev2, odom2map)
+    -> ((pose_K, pose_{K-1}, odom2map_K), packed (K, 21))``, where
+    ``ds_block`` is this rank's (K, C/n, 3) block of the scan stack and
+    ``local_odoms`` is None in lo mode. Every rank runs the whole solver
+    chain on its block against the replicated target; per-iteration sums
+    are gathered and summed in rank order (LOAM: 43 floats per GN
+    iteration; NDT: 44 and then 6 per Newton iteration; VGICP: 44 per GN
+    iteration), so the pose chain and the packed rows are bit-identical on
+    every rank. With one rank no hook is set: the batch is the unsharded
+    one bit for bit."""
+    from ..parallel.dist_registration import loam_hooks
+
+    ax = mesh.axis(axis)
+    reduce_fn, rmax_fn = loam_hooks(ax)
+    if mode not in ("lo", "lio"):
+        raise ValueError(f"unknown mode {mode!r}")
+
+    def fn(ds_block, local_odoms, target, pose_prev, pose_prev2, odom2map):
+        return _batch_body(ds_block, target, pose_prev, pose_prev2, odom2map,
+                           kind, clamp, degen, jump_cap,
+                           local_odoms if mode == "lio" else None,
+                           reduce_fn, rmax_fn,
+                           ax.gather_sum if ax.size > 1 else None)
+
+    return fn
 
 
 def _apply_delta(delta: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
@@ -420,13 +463,21 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
 
     With ``SIMPLESLAM_DEBUG_SUPPORT`` set in the environment, every retired
     scan prints its support, converged flag, iterations and position.
+
+    ``tpu.mesh_devices = n > 0`` runs SPMD on the ``n`` ranks of the
+    initialised process group (one needs no group): every rank calls this
+    with the same system config and streams, registers its block of each
+    scan (``make_sharded_batch``), and ends with bit-identical poses and
+    keyframes. On more than one rank the backend runs inline at the batch
+    boundaries: a worker thread's solves land at times of each rank's own,
+    and its keyframe write-backs race the submap rebuilds, so only the
+    inline schedule keeps the ranks' states, and the order of their
+    collectives, a function of the data. ``extras["mesh"]`` counts the
+    run's collectives.
     """
     lg = Logger.get_instance()
     cfg = Params.get_instance()
-    if int(cfg["tpu"].get("mesh_devices", 0)):
-        raise NotImplementedError(
-            "the mesh-sharded streamed batch (tpu.mesh_devices > 0) is not "
-            "ported to simpleslam_tpu_torch yet (ROADMAP item 12)")
+    mesh_n = int(cfg["tpu"].get("mesh_devices", 0))
     timers = StageTimers()
     tt_all = TicToc()
     tt = TicToc()
@@ -450,6 +501,10 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 np.asarray(streams.scans[0], np.float32), grid))
             dsc = max(2048, min(dsc, -(-int(cnt0 * 1.2) // 512) * 512))
         dsc = min(dsc, mm.kf_capacity)  # scan rows must fit kf-store rows
+        if mesh_n > 1:  # one equal block of every scan per rank
+            dsc = -(-dsc // mesh_n) * mesh_n
+            if dsc > mm.kf_capacity:
+                dsc -= mesh_n
         system._streamed_scan_capacity = dsc
     kind = system.register.KIND
     mode = system.mode
@@ -458,6 +513,26 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     # jump rejection defaults off (results are used as-is, as the reference
     # does); NaN safety and the STEP_CAP are unconditional
     jump_cap = float(cfg["tpu"].get("max_scan_jump_m", 0.0))
+
+    # multi-device execution: the scan points shard over the "dp" ranks,
+    # and the backend solves edge-sharded over its own "kf" group
+    # (models/backend.py reads the same config key)
+    mesh = None
+    block = slice(None)
+    if mesh_n:
+        from ..parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(mesh_n, ("dp",), device=dev)
+        block = mesh.axis("dp").shard(dsc)
+        batch_fn = make_sharded_batch(mesh, kind, mode, clamp, degen,
+                                      jump_cap=jump_cap)
+        stats0 = dict(pmesh.STATS)
+    else:
+        def batch_fn(rows_d, locals_d, target, pose_prev, pose_prev2,
+                     odom2map):
+            return _batch_body(rows_d, target, pose_prev, pose_prev2,
+                               odom2map, kind, clamp, degen, jump_cap,
+                               locals_d)
 
     scan_stamps = np.asarray(streams.scan_stamps)
     n_scans = len(scan_stamps)
@@ -492,7 +567,8 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     # tpu.sync_backend: service keyframe events inline at batch boundaries
     # instead of on the worker thread — throughput pays the serialized
     # solves, accuracy becomes a function of the data alone
-    sync_backend = (bool(cfg["tpu"].get("sync_backend", False))
+    sync_backend = ((bool(cfg["tpu"].get("sync_backend", False))
+                     or (mesh is not None and mesh.world_size > 1))
                     and system.backend is not None)
     worker = (_BackendWorker(system, timers)
               if system.backend is not None and not sync_backend else None)
@@ -571,15 +647,15 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 kf_rows[i] = (row, cnt)
             timers.add("prep", tt.toc())
             tt.tic()
-            rows_d = torch.from_numpy(rows).to(dev)
+            rows_d = torch.from_numpy(np.ascontiguousarray(
+                rows[:, block])).to(dev)
             locals_d = (torch.from_numpy(
                 local_np[batch[0]: batch[-1] + 1]).to(dev)
                 if mode == "lio" else None)
             timers.add("upload", tt.toc())
             tt.tic()
-            (pose_prev, pose_prev2, odom2map), packed = _batch_body(
-                rows_d, target, pose_prev, pose_prev2, odom2map, kind, clamp,
-                degen, jump_cap, locals_d)
+            (pose_prev, pose_prev2, odom2map), packed = batch_fn(
+                rows_d, locals_d, target, pose_prev, pose_prev2, odom2map)
             if device_probe:
                 _wait_for_device()
                 timers.add("device_exec", tt.toc())
@@ -787,6 +863,13 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 continue  # resumed keyframe with no scan in this run
             est_poses[i] = kf_poses[a] @ np.linalg.inv(base[j]) @ base[i]
     n_reg = max(stats["n_reg"], 1)
+    mesh_stats = None
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        mesh_stats = {"ranks": mesh.world_size, "rank": mesh.rank,
+                      "backend": mesh.backend}
+        mesh_stats.update({k: pmesh.STATS[k] - stats0[k] for k in stats0})
     return SlamResult(
         stamps=scan_stamps,
         poses=est_poses,
@@ -805,6 +888,7 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             "n_deltas": stats["n_deltas"],
             "n_dropped_deltas": stats["n_dropped_deltas"],
             "ekf_chunks": feeder.n_chunks if feeder is not None else 0,
+            "mesh": mesh_stats,
             # the reference's evaluation artifact: optimized keyframe TUM
             "kf_stamps": kf_stamps,
             "kf_poses": kf_poses,

@@ -141,7 +141,18 @@ def run_threaded(system: SlamSystem, streams: sim.SensorStreams,
 
     ``realtime_rate=None`` replays as fast as backpressure allows (bag mode);
     a float paces dispatch at that multiple of real time (live emulation).
+
+    One rank only: its resident threads meet at times of each process's
+    own, so the backend's sharded solves could not be issued in the same
+    order on several ranks. A mesh of more than one rank replays through
+    ``streamed.run_streamed``.
     """
+    from ..parallel.mesh import world
+
+    if world()[1] > 1:
+        raise ValueError(
+            "run_threaded runs on one rank: on a mesh of more than one rank "
+            "replay through pipeline.streamed.run_streamed")
     runner = ThreadedRunner(system, bag_mode=realtime_rate is None)
     runner.start()
     tt_all = TicToc()

@@ -1,7 +1,7 @@
 """The PyTorch port as a package: it stands alone (no jax, no triton, no
 reference package, host helpers built from its own source in a directory
 that holds nothing else), copies the simulator and config schema exactly,
-refuses the parts it has not ported, runs its CLI (offline and streamed,
+refuses a mesh it has no process group for, runs its CLI (offline and streamed,
 backend and loop closure on, lio mode, the NDT register, a profiler trace),
 reports which host-helper path it runs, and its GPU smoke script fails
 cleanly where there is no GPU."""
@@ -58,11 +58,14 @@ def test_imports_without_jax_triton_or_reference():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 32, names\n"
+        "assert len(names) >= 39, names\n"
         "for n in ('models.filter', 'ops.ndt', 'ops.vgicp', 'pipeline.threaded',\n"
         "          'utils.profiling', 'pipeline.bagio', 'pipeline.vis', 'eval',\n"
         "          'eval.metrics', 'eval.gps', 'eval.__main__', 'ops.roofline',\n"
-        "          'memcheck'):\n"
+        "          'memcheck', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.multihost', 'parallel.dist_registration',\n"
+        "          'parallel.dist_posegraph', 'parallel.workers',\n"
+        "          'parallel.dryrun'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -124,16 +127,18 @@ def test_roofline_counts_are_the_reference_ones_against_the_cards_peaks():
                                             "sol_frac": 0.0}
 
 
-@pytest.mark.parametrize("cfg,item", [
-    ({"tpu": {"mesh_devices": 2}}, "item 12"),
+@pytest.mark.parametrize("cfg,refusal", [
+    ({"tpu": {"mesh_devices": 2}}, "run_hosts.*torchrun"),
     ({"backend": {"enable": False}, "vis": {"enable": True}}, None),
 ], ids=["mesh", "vis"])
-def test_unported_parts_are_refused(cfg, item):
-    """Only multi-device execution is still refused. The visualizer, which
-    earlier slices refused, is built and wired to the odometry now."""
+def test_unported_parts_are_refused(cfg, refusal):
+    """Nothing is refused as unported any more. Multi-device execution runs
+    on a process group of as many ranks: outside one, a mesh of two is
+    refused with a message naming the launchers. The visualizer, which
+    earlier slices refused, is built and wired to the odometry."""
     cfg = dict(cfg, torch={"device": "cpu"})
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    if refusal is not None:
+        with pytest.raises(RuntimeError, match=refusal):
             tapp.SlamSystem(cfg)
         return
     system = tapp.SlamSystem(cfg)
@@ -161,12 +166,23 @@ def test_every_mode_and_register_is_accepted(cfg, kind):
 
 
 def test_cli_refuses_backend_config(tmp_path):
-    """The backend runs now; its sharded form does not, and the CLI says so."""
+    """The sharded backend runs now (tests/test_torch_multichip.py); inside
+    a process group whose size is not the config's mesh, the CLI refuses
+    the config instead of running a mesh of another size."""
+    import torch.distributed as dist
+
+    from simpleslam_tpu_torch.parallel.multihost import _free_port
+
     cfg = tmp_path / "mesh.json"
     cfg.write_text('{"torch": {"device": "cpu"}, "tpu": {"mesh_devices": 2}}')
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        tapp.main(["--synthetic", "--config", str(cfg), "--scans", "2",
-                   "--out", str(tmp_path)])
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{_free_port()}", world_size=1, rank=0)
+    try:
+        with pytest.raises(RuntimeError, match="world size 1"):
+            tapp.main(["--synthetic", "--config", str(cfg), "--scans", "2",
+                       "--out", str(tmp_path)])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cli_streamed_run_with_backend_and_loop_closure(tmp_path, capsys):
