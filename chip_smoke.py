@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--scans N] [--kernels-only] [--only PATHS]
 
-Drives ``simpleslam_tpu_torch`` (never jax) through eighteen phases and
+Drives ``simpleslam_tpu_torch`` (never jax) through twenty-two phases and
 fails with a nonzero exit on the first problem:
 
 1. environment: card name and power limit (nvidia-smi), torch / CUDA
@@ -116,7 +116,36 @@ fails with a nonzero exit on the first problem:
    equal on every rank; the per-scan gap is printed with the registration
    where it opens, ROADMAP F6); scans/s, collectives per scan and their ms,
    and the host-staged copies of the collectives, beside the card;
-18. the result: a JSON line of the kernels K1-K4 (with the launches of each
+18. localization (``SlamSystem(pcd_file=...)``): a mapping run of the
+   bench's full config on the bench sequence saves its keyframes, which at
+   their saved poses make a global PCD; ``tpu.submap_capacity`` is set to
+   hold all of it (its point count is printed); the sequence is localized
+   against it streamed (32-scan batches) and offline, and from scan 75
+   after ``set_reloc_flag``: every scan registered by one K3 launch, no
+   keyframe, ATE under 0.15 m;
+19. the hard worlds: the bench's ``adversarial``, ``corridor`` (lio,
+   ``loop=False``) and ``forest_dynamic`` (6 moving obstacles) configs,
+   degeneracy guard on, 100 scans of which 15 warm up: streamed ATE and
+   converged limits (the corridor: the lateral, vertical and yaw bounds of
+   tests/test_adversarial.py, and every scan within 25 mm of the port's
+   own CPU run); then that file's corridor registration fixture, K3 with
+   the guard against ``gn_loop_stepwise``: both within its bounds, the
+   unguarded K3 further along the corridor, the gap and the directions
+   each eigensolve zeroes printed;
+20. the pose graph above the dense cut: the 1536-node ring of
+   tests/test_posegraph_scale.py solved on the card at 40 x 256
+   iterations (cost under 1e-3 of the start, every pose within 0.05 m of
+   the truth, rotations orthonormal to 5e-4), ms per solve, launches per
+   CG iteration, one LM iteration under sync debugging and its idle share;
+   a 600-node ring within 1e-3 m of the port's CPU solve;
+21. multi-lap loop closure: the 400-scan spiral of
+   tests/test_pipeline_lc_multi.py with ``tpu.sync_backend``: at least 3
+   closures, none dropped, each within 0.3 m of the truth, the keyframe
+   map no worse than the raw odometry + 0.02 m and under 0.3 m;
+   18, 19 and 21 hold K3 to one launch per registration with no plain
+   version, and run one batch body under sync debugging and the profiler,
+   as 5-7 do; 18-21 run before 17, which runs last;
+22. the result: a JSON line of the kernels K1-K4 (with the launches of each
    path: K3's launches, for K1 and K2 the times their bodies ran as phases
    of K3, from the recorded gathers and iterations, the K1 phases of the
    ``scan2map`` paths of 13 reading the dense map's or the table's
@@ -125,8 +154,9 @@ fails with a nonzero exit on the first problem:
    times and bounds on those targets), the nvidia-smi line, and last a
    JSON line ``{"ok": true, "device": ...}``.
 
-``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,mesh`` (any
-subset) drives just the named paths of 8-17 after the build (a quick check
+``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,loc,hard,graph,``
+``multilap,mesh`` (any subset) drives just the named paths of 8-21 after
+the build (a quick check
 while working on one of them; ``k4``, ``recorded`` and ``mesh`` run the
 streamed full config first, for its inputs) and prints no result line.
 """
@@ -740,12 +770,17 @@ def describe_launches(c: dict) -> str:
             f"stepwise loops on CUDA {c['stepwise']}")
 
 
-def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
-               conv_min: float, launches: dict, kind: str = "loam") -> None:
+def check_path(name: str, result, n_scans: int, ate: float, ate_max,
+               conv_min: float, launches: dict, kind: str = "loam",
+               n_reg=None) -> None:
+    """Finite poses, ATE under ``ate_max`` (None: no bound), converged share
+    over ``conv_min`` (None: no bound), and for LOAM one K3 launch per
+    registration: ``n_reg`` of them (every scan but the one that seeds the
+    map unless given), no plain version."""
     if result.poses.shape != (n_scans, 4, 4) or not np.isfinite(
             result.poses).all():
         fail(f"{name}: trajectory is not finite ({n_scans}, 4, 4)")
-    if not ate < ate_max:
+    if ate_max is not None and not ate < ate_max:
         fail(f"{name}: ATE {ate} >= {ate_max} m")
     if conv_min is not None and not result.converged_frac > conv_min:
         fail(f"{name}: converged fraction {result.converged_frac} <= "
@@ -756,9 +791,8 @@ def check_path(name: str, result, n_scans: int, ate: float, ate_max: float,
         print(f"{name}: register {kind} launches no hand kernel: "
               f"{describe_launches(launches)}")
         return
-    # every scan but the one that seeds the map is registered, each by one
-    # launch of K3
-    if not (launches["k3"] == launches["registrations"] == n_scans - 1):
+    n_reg = n_scans - 1 if n_reg is None else n_reg
+    if not (launches["k3"] == launches["registrations"] == n_reg):
         fail(f"{name}: K3 launches {launches['k3']}, registrations "
              f"{launches['registrations']}, scans {n_scans}")
     if launches["k1"] < launches["registrations"] or launches["k2"] == 0:
@@ -2461,12 +2495,607 @@ def mesh_paths(card: str) -> dict:
     return by_path
 
 
+# -- localization, hard worlds, large pose graphs, sustained closure ----------
+LOC_ATE_MAX = 0.15        # tests/test_pipeline_full.py, tests/test_streamed_loc.py
+LOC_RELOC_AT = 75         # the scan a relocalized run starts from
+LOC_CAP_QUANTUM = 4096    # tpu.submap_capacity is the PCD's size rounded up
+
+
+def subseq(sim, streams, lo: int, hi=None):
+    """Scans ``lo:hi`` with the wheel and IMU messages of their span (the
+    bench's ``_subseq``, bench.py:35-47)."""
+    sl = slice(lo, hi)
+    lo_t = streams.scan_stamps[lo] - 0.15
+    hi_t = streams.scan_stamps[hi - 1] + 0.15 if hi is not None else np.inf
+    w = (streams.wheel_stamps >= lo_t) & (streams.wheel_stamps < hi_t)
+    i = (streams.imu_stamps >= lo_t) & (streams.imu_stamps < hi_t)
+    return sim.SensorStreams(
+        streams.scan_stamps[sl], streams.scans[sl], streams.gt_poses[sl],
+        streams.wheel_stamps[w], streams.wheel_poses[w],
+        streams.imu_stamps[i], streams.imu_quats[i])
+
+
+def global_pcd(streams, root: str, card: str):
+    """A mapping run of the bench's full config on the card that saves its
+    keyframes (``tum.txt``, ``{i}.pcd``, ``fg.g2o``), and the global PCD of
+    those keyframes at their saved poses (the reference's loc.cpp prep):
+    (path, point count)."""
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+    from simpleslam_tpu_torch.utils import fileio
+
+    map_dir = os.path.join(root, "map")
+    os.makedirs(map_dir)
+    system = app.SlamSystem(dict(BENCH_FULL, saveMapDir=map_dir,
+                                 torch={"device": "cuda"}))
+    t0 = time.perf_counter()
+    res = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY)
+    system.shutdown()
+    stamps, poses = fileio.load_tum(map_dir)
+    if len(stamps) != res.keyframe_count or not len(stamps):
+        fail(f"localization: the mapping run saved {len(stamps)} keyframes "
+             f"of {res.keyframe_count}")
+    clouds = []
+    for i in range(len(stamps)):
+        xyz, _ = fileio.load_pcd(os.path.join(map_dir, f"{i}.pcd"))
+        R, t = poses[i][:3, :3], poses[i][:3, 3]
+        clouds.append(xyz @ R.T.astype(np.float32) + t.astype(np.float32))
+    pts = np.concatenate(clouds)
+    pcd = os.path.join(root, "global.pcd")
+    fileio.save_pcd(pcd, pts)
+    print(f"localization: mapping run (bench full config, {len(res.poses)} "
+          f"scans) and save in {time.perf_counter() - t0:.2f} s; "
+          f"{len(stamps)} keyframes make a global PCD of {len(pts)} points "
+          f"({card})")
+    return pcd, len(pts)
+
+
+def loc_run(name: str, cfg: dict, pcd: str, streams, card: str,
+            how: str, start: int = 0) -> dict:
+    """One localization run against the global PCD: ``run_streamed`` in
+    32-scan batches or ``run_offline``, from scan ``start`` (after a reloc
+    to its true pose when ``start`` > 0). Every scan is registered (the
+    static map needs no seed scan), by one K3 launch each; no keyframe."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+    phase(name)
+    system = app.SlamSystem(cfg, pcd_file=pcd)
+    mm = system.map_manager
+    if mm.is_mapping or mm.is_submap_empty():
+        fail(f"{name}: the global map did not load as a static target")
+    sub = subseq(sim, streams, start)
+    if start:
+        if not np.linalg.norm(sub.gt_poses[0][:3, 3]) > 3.0:
+            fail(f"{name}: scan {start} is too near the identity start")
+        system.lidar_odometry.set_reloc_flag(sub.gt_poses[0].copy())
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_counts()
+    with GnRecorder() as rec:
+        if how == "streamed":
+            result = run_streamed(system, sub, sync_every=BENCH_SYNC_EVERY)
+        else:
+            result = app.run_offline(system, sub)
+        torch.cuda.synchronize()
+    launches = launch_counts(rec)
+    n = len(sub.scan_stamps)
+    ate = sim.ate_rmse(sub.gt_poses, result.poses, align=False)
+    if how == "streamed":
+        report_streamed(name, result, n, ate, launches, card)
+    else:
+        print(f"{name}: {n} scans in {result.wall_time:.2f} s = "
+              f"{n / result.wall_time:.2f} scans/s end to end; ATE "
+              f"{ate:.6f} m, keyframes {result.keyframe_count}, converged "
+              f"{result.converged_frac:.3f}, {describe_launches(launches)} "
+              f"({card})")
+    check_path(name, result, n, ate, LOC_ATE_MAX, STREAMED_CONV_MIN,
+               launches, n_reg=n)
+    if result.keyframe_count != 0:
+        fail(f"{name}: localization made {result.keyframe_count} keyframes")
+    if how == "streamed":
+        batch_probe(name, system, sub, result, BENCH_SYNC_EVERY, card)
+    return launches
+
+
+def loc_paths(streams, card: str) -> dict:
+    """Localization mode (``SlamSystem(pcd_file=...)``) at full width."""
+    phase("localization: global PCD from a mapping run")
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loc_") as root:
+        pcd, n_pts = global_pcd(streams, root, card)
+        cap = -(-n_pts // LOC_CAP_QUANTUM) * LOC_CAP_QUANTUM
+        print(f"localization: tpu.submap_capacity {cap} holds the global "
+              f"PCD's {n_pts} points (a larger cloud is cut at load)")
+        cfg = {"mode": "lo", "saveMapDir": "", "backend": {"enable": False},
+               "frontend": {"pcr": "loam"}, "tpu": {"submap_capacity": cap},
+               "torch": {"device": "cuda"}}
+        out["loc_streamed"] = loc_run("localization, streamed", cfg, pcd,
+                                      streams, card, "streamed")
+        out["loc_offline"] = loc_run("localization, offline", cfg, pcd,
+                                     streams, card, "offline")
+        out["loc_reloc"] = loc_run(
+            f"relocalization at scan {LOC_RELOC_AT}, streamed", cfg, pcd,
+            streams, card, "streamed", start=LOC_RELOC_AT)
+    return out
+
+
+# the bench's hard-geometry configs (bench.py:332-353, 406-444)
+HARD_SCANS = 100
+HARD_WARMUP = 15
+HARD_GUARD = {"pcr": "loam", "degeneracy_guard": True}
+HARD_WORLDS = (
+    ("adversarial", lambda sim: sim.make_adversarial_world(seed=5),
+     {"mode": "lo", "backend": {"enable": False}, "frontend": HARD_GUARD}, {}),
+    ("corridor", lambda sim: sim.make_corridor_world(),
+     {"mode": "lio", "backend": {"enable": False}, "frontend": HARD_GUARD},
+     {"loop": False}),
+    ("forest_dynamic", lambda sim: sim.make_forest_world(seed=3),
+     {"mode": "lo", "backend": {"enable": False}, "frontend": HARD_GUARD},
+     {"n_dynamic": 6}),
+)
+CORRIDOR_SIDE_MAX = 0.1   # metres, lateral and vertical (tests/test_adversarial.py)
+CORRIDOR_YAW_MAX = 0.03   # radians
+CORRIDOR_CPU_GAP = 1e-3   # metres per scan, card against the port on the CPU
+
+
+def _yaw(poses: np.ndarray) -> np.ndarray:
+    return np.arctan2(poses[:, 1, 0], poses[:, 0, 0])
+
+
+def hard_world_run(name: str, make, cfg: dict, seq_kw: dict, card: str):
+    """``run_hard_world`` of bench.py: 100 scans (``simulate_sequence``
+    defaults, seed 2), 15 of warm-up through ``run_streamed``, then the rest
+    on the same system, scored on those. Returns (launch counts of both
+    calls, streams, the scored result)."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+    phase(f"hard world: {name} (bench config, {HARD_SCANS} scans)")
+    t0 = time.perf_counter()
+    streams = sim.simulate_sequence(make(sim), n_scans=HARD_SCANS, seed=2,
+                                    **seq_kw)
+    print(f"{name}: simulated {HARD_SCANS} scans in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy, not part of the "
+          "path)")
+    system = app.SlamSystem(dict(cfg, torch={"device": "cuda"}))
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_counts()
+    with GnRecorder() as rec:
+        run_streamed(system, subseq(sim, streams, 0, HARD_WARMUP))
+        t0 = time.perf_counter()
+        result = run_streamed(system, subseq(sim, streams, HARD_WARMUP))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = launch_counts(rec)
+    scored = subseq(sim, streams, HARD_WARMUP)
+    n = len(scored.scan_stamps)
+    ate = sim.ate_rmse(scored.gt_poses, result.poses, align=False)
+    err = np.abs(result.poses[:, :3, 3] - scored.gt_poses[:, :3, 3]).max(0)
+    print(f"{name}: {n} scored scans in {dt:.2f} s = {n / dt:.2f} scans/s; "
+          f"ATE {ate:.4f} m (unaligned), converged "
+          f"{result.converged_frac:.3f}; worst |error| x / y / z "
+          f"{err[0]:.4f} / {err[1]:.4f} / {err[2]:.4f} m; "
+          f"{describe_launches(launches)} ({card})")
+    # the warm-up seeds the map with its first scan; every other scan of
+    # the two calls is one registration
+    # the corridor's along-track error rides the wheel odometry, which the
+    # streamed ATE limit does not describe: corridor_against_cpu holds it
+    check_path(name, result, n, ate,
+               None if name == "corridor" else STREAMED_ATE_MAX,
+               STREAMED_CONV_MIN, launches, n_reg=HARD_SCANS - 1)
+    batch_probe(name, system, scored, result, BENCH_SYNC_EVERY, card)
+    return launches, streams, result
+
+
+def corridor_against_cpu(streams, result, cfg: dict, card: str) -> None:
+    """The corridor's bounds: lateral, vertical and yaw as
+    tests/test_adversarial.py sets them; along the corridor, where the
+    guard zeroes the step and x rides the wheel odometry, every scan within
+    ``CORRIDOR_CPU_GAP`` of the port's own CPU run of the same streams (the
+    plain loop, torch's eigensolve) in this call."""
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+    gt = streams.gt_poses[HARD_WARMUP:]
+    err = result.poses[:, :3, 3] - gt[:, :3, 3]
+    yaw = np.abs(_yaw(result.poses) - _yaw(gt)).max()
+    t0 = time.perf_counter()
+    cpu = app.SlamSystem(dict(cfg, torch={"device": "cpu"}))
+    run_streamed(cpu, subseq(sim, streams, 0, HARD_WARMUP))
+    ref = run_streamed(cpu, subseq(sim, streams, HARD_WARMUP))
+    gap = np.linalg.norm(result.poses[:, :3, 3] - ref.poses[:, :3, 3], axis=1)
+    ate_cpu = sim.ate_rmse(gt, ref.poses, align=False)
+    print(f"corridor: worst lateral {np.abs(err[:, 1]).max():.4f} m, "
+          f"vertical {np.abs(err[:, 2]).max():.4f} m, yaw {yaw:.5f} rad, "
+          f"along the corridor {np.abs(err[:, 0]).max():.4f} m; the port on "
+          f"the CPU (run in {time.perf_counter() - t0:.1f} s): ATE "
+          f"{ate_cpu:.4f} m, worst along the corridor "
+          f"{np.abs(ref.poses[:, 0, 3] - gt[:, 0, 3]).max():.4f} m; card "
+          f"against CPU at most {gap.max():.3e} m per scan (scan "
+          f"{HARD_WARMUP + int(gap.argmax())}) ({card})")
+    if not (np.abs(err[:, 1]).max() < CORRIDOR_SIDE_MAX
+            and np.abs(err[:, 2]).max() < CORRIDOR_SIDE_MAX
+            and yaw < CORRIDOR_YAW_MAX):
+        fail("corridor: the guard let a constrained direction drift")
+    if not gap.max() < CORRIDOR_CPU_GAP:
+        fail(f"corridor: a scan lies {gap.max()} m from the CPU run's")
+
+
+def corridor_fixture(sim, rng):
+    """tests/test_adversarial.py's corridor registration fixture, built on
+    the card: a dense map (grid 2, dims (48, 48, 12), 24 points a voxel) of
+    three scans at x = 5, 7 and 9 m, and a scan at x = 8 m from a start
+    0.5 / 0.15 / 0.08 m off. Returns (map, scan, truth, start)."""
+    from simpleslam_tpu_torch.ops import pointcloud as pcops
+    from simpleslam_tpu_torch.ops import voxel as vox
+
+    world = sim.make_corridor_world()
+    base = np.eye(4)
+    base[0, 3] = 5.0
+    clouds = []
+    for dx in (0.0, 2.0, 4.0):
+        p = base.copy()
+        p[0, 3] += dx
+        scan = sim.simulate_scan(world, sim.sensor_from_body(p), rng=rng)
+        clouds.append((scan @ p[:3, :3].T + p[:3, 3]).astype(np.float32))
+    merged = pcops.from_numpy(np.concatenate(clouds), 98304, "cuda")
+    ds = pcops.compact(vox.voxel_downsample(merged, 0.5), 32768)
+    center = torch.tensor(base[:3, 3].astype(np.float32), device="cuda")
+    vm = vox.build_dense_voxel_map(ds, 2.0, center, dims=(48, 48, 12),
+                                   slab_size=24)
+    T_b = base.copy()
+    T_b[0, 3] = 8.0
+    scan = sim.simulate_scan(world, sim.sensor_from_body(T_b), rng=rng)
+    src = pcops.compact(vox.voxel_downsample(
+        pcops.from_numpy(scan, 32768, "cuda"), 0.5), 8192)
+    guess = T_b.copy()
+    guess[:3, 3] += [0.5, 0.15, 0.08]
+    return vm, src, T_b, guess
+
+
+def _zeroed(w: np.ndarray, V: np.ndarray, floor: float) -> str:
+    """The eigen-directions under the guard's floor, each by its largest
+    component (tx, ty, tz, rx, ry, rz)."""
+    names = ("tx", "ty", "tz", "rx", "ry", "rz")
+    out = []
+    for k in np.nonzero(w <= floor)[0]:
+        v = V[:, k] / np.linalg.norm(V[:, k])
+        j = int(np.argmax(np.abs(v)))
+        out.append(f"{names[j]} {abs(v[j]):.4f} (eigenvalue {w[k]:.2f})")
+    return "; ".join(out) or "none"
+
+
+def corridor_guard_check(card: str) -> None:
+    """K3 with the guard against ``gn_loop_stepwise`` on the corridor
+    fixture: both meet the fixture's bounds, K3 lies within ``POSE_T_TOL``
+    / ``POSE_R_TOL`` of the stepwise loop, the unguarded K3 wanders
+    further along the corridor, and the directions each eigensolve (K3's
+    Jacobi, torch's ``eigh``) zeroes at the start are printed."""
+    from simpleslam_tpu_torch import native
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.ops import pointcloud as pcops
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+
+    phase("hard world: the corridor registration fixture, K3 against the "
+          "stepwise loop")
+    vm, src, T_b, guess = corridor_fixture(sim, np.random.default_rng(0))
+    start = torch.tensor(guess.astype(np.float32), device="cuda")
+    before = (lk.K3_LAUNCHES, lk.K3_PLAIN_CUDA_CALLS)
+    k3 = loam.gn_loop(src, vm, start, degen_per_row=DEGEN)
+    k3_off = loam.gn_loop(src, vm, start, degen_per_row=0.0)
+    step = loam.gn_loop_stepwise(src, vm, start, degen_per_row=DEGEN)
+    if (lk.K3_LAUNCHES - before[0], lk.K3_PLAIN_CUDA_CALLS - before[1]) != \
+            (2, 1):
+        fail("corridor fixture: K3 and the stepwise loop did not each run")
+    ests = {}
+    for tag, res in (("K3, guard on", k3), ("stepwise, guard on", step),
+                     ("K3, guard off", k3_off)):
+        est = res.pose.cpu().numpy().astype(np.float64)
+        ests[tag] = est
+        print(f"corridor fixture, {tag}: x {est[0, 3] - guess[0, 3]:+.4f} m "
+              f"from the prediction, y {est[1, 3] - T_b[1, 3]:+.4f} m, z "
+              f"{est[2, 3] - T_b[2, 3]:+.4f} m from the truth; iterations "
+              f"{int(res.iters)}, n_valid {int(res.n_valid)}")
+    for tag in ("K3, guard on", "stepwise, guard on"):
+        est = ests[tag]
+        if not (abs(est[1, 3] - T_b[1, 3]) < 0.05
+                and abs(est[2, 3] - T_b[2, 3]) < 0.05
+                and abs(est[0, 3] - guess[0, 3]) < 0.2
+                and np.linalg.norm(est[:3, 3] - T_b[:3, 3]) < 1.0):
+            fail(f"corridor fixture, {tag}: outside the fixture's bounds")
+    if not (abs(ests["K3, guard off"][0, 3] - guess[0, 3])
+            > abs(ests["K3, guard on"][0, 3] - guess[0, 3])):
+        fail("corridor fixture: the unguarded K3 did not wander further")
+    gap = float(np.linalg.norm(ests["K3, guard on"][:3, 3]
+                               - ests["stepwise, guard on"][:3, 3]))
+    gap_r = _rot_angle(ests["K3, guard on"][:3, :3],
+                       ests["stepwise, guard on"][:3, :3])
+    # the first iteration's system (the planes fit at the start), and the
+    # directions each guard's eigensolve puts under the floor
+    cpu = pcops.PointCloud(*(t.cpu() for t in src))
+    vm_cpu = type(vm)(*(t.cpu() if isinstance(t, torch.Tensor) else t
+                        for t in vm))
+    JtJ, _, n_valid = loam.build_normal_equations(cpu, vm_cpu, start.cpu())
+    floor = DEGEN * float(n_valid)
+    w_j, V_j = native.jacobi_eig6(JtJ.numpy())
+    w_t, V_t = torch.linalg.eigh(JtJ.to("cuda"))
+    print(f"corridor fixture: K3 against the stepwise loop, guard on: "
+          f"{gap:.3e} m, {gap_r:.3e} rad; at the start (n_valid "
+          f"{int(n_valid)}, floor {floor:.2f}) K3's Jacobi eigensolve zeroes "
+          f"{_zeroed(w_j, V_j, floor)}; the stepwise loop's torch eigh "
+          f"zeroes {_zeroed(w_t.cpu().numpy(), V_t.cpu().numpy(), floor)} "
+          f"({card})")
+    if gap > POSE_T_TOL or gap_r > POSE_R_TOL:
+        fail(f"corridor fixture: K3 with the guard lies {gap} m / {gap_r} "
+             f"rad from the stepwise loop (limits {POSE_T_TOL} / "
+             f"{POSE_R_TOL})")
+
+
+def hard_paths(card: str) -> dict:
+    out = {}
+    for name, make, cfg, seq_kw in HARD_WORLDS:
+        launches, streams, result = hard_world_run(name, make, cfg, seq_kw,
+                                                   card)
+        if name == "corridor":
+            corridor_against_cpu(streams, result, cfg, card)
+        out[f"hard_{name}"] = launches
+        torch.cuda.empty_cache()
+    corridor_guard_check(card)
+    return out
+
+
+# the large pose graph of tests/test_posegraph_scale.py
+GRAPH_K = 1536
+GRAPH_ARGS = {"k": GRAPH_K, "k_cap": GRAPH_K, "e_cap": 6144, "n_lc": 512,
+              "drift": 0.03, "seed": 3}
+GRAPH_ITERS = (40, 256)   # LM iterations, CG iterations (the test's budget)
+GRAPH_MID = {"k": 600, "k_cap": 600, "e_cap": 2400, "n_lc": 200,
+             "drift": 0.03, "seed": 3}
+GRAPH_MID_ITERS = (10, 64)
+GRAPH_MID_CPU_TOL = 1e-3  # metres, the card's solve against the CPU's
+
+
+def _solve_launches(g, cg_iters: int) -> int:
+    """Kernel launches of one LM iteration of ``cg_iters`` CG iterations,
+    from torch.profiler (the topology read left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleslam_tpu_torch.ops import posegraph as pgo
+
+    pgo.solve(g, max_iters=1, cg_iters=cg_iters).cost.cpu()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pgo.solve(g, max_iters=1, cg_iters=cg_iters).cost.cpu()
+        torch.cuda.synchronize()
+    act = device_activity(prof)
+    return None if act is None else act[0] + act[1]
+
+
+def graph_paths(card: str) -> dict:
+    """The pose graph above the dense cut on the card: the 1536-node ring
+    at the reference test's budget, and a 600-node ring against the port's
+    own CPU solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleslam_tpu_torch.ops import posegraph as pgo
+    from simpleslam_tpu_torch.parallel.dist_posegraph import _ring_graph
+
+    phase(f"pose graph above the dense cut (K = {GRAPH_K}, PCG)")
+    g, gt = _ring_graph(return_gt=True, device=torch.device("cuda"),
+                        **GRAPH_ARGS)
+    k = GRAPH_K
+    if not k > pgo.DENSE_SOLVE_MAX_K:
+        fail("graph: the ring is not above the dense cut")
+    lm, cg = GRAPH_ITERS
+    pgo.solve(g, max_iters=1, cg_iters=cg).cost.cpu()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = pgo.solve(g, max_iters=lm, cg_iters=cg)
+    cost, cost0 = float(res.cost), float(res.cost0)
+    ms = 1e3 * (time.perf_counter() - t0)
+    opt = res.poses[:k].cpu().numpy().astype(np.float64)
+    err = np.linalg.norm(opt[:, :3, 3] - gt[:, :3, 3], axis=1)
+    R = opt[:, :3, :3]
+    ortho = float(np.abs(np.einsum("kij,kil->kjl", R, R)
+                         - np.eye(3)).max())
+    n_a = _solve_launches(g, 16)
+    n_b = _solve_launches(g, 48)
+    per_cg = (None if n_a is None or n_b is None else (n_b - n_a) / 32)
+    print(f"graph: K = {k}, E = {GRAPH_ARGS['e_cap']} ({GRAPH_ARGS['n_lc']} "
+          f"closures), {lm} LM x {cg} CG iterations in {ms:.1f} ms per solve;"
+          f" cost {cost0:.2f} -> {cost:.5f} ({cost / cost0:.3e} of the "
+          f"start); worst error against the truth {1e3 * err.max():.3f} mm "
+          f"(mean {1e3 * err.mean():.3f}); R^T R - I at most {ortho:.2e}; "
+          f"{per_cg} device launches per CG iteration (torch.profiler) "
+          f"({card})")
+    if not (np.isfinite(cost) and cost < 1e-3 * cost0):
+        fail(f"graph: cost {cost} is not under 1e-3 of {cost0}")
+    if not err.max() < 0.05:
+        fail(f"graph: a pose lies {err.max()} m from the truth")
+    if not ortho < 5e-4:
+        fail(f"graph: rotations are off orthonormal by {ortho}")
+    # one LM iteration after the topology read, with sync debugging set to
+    # raise, and its device idle share
+    tab = pgo._tables(g)
+    orig = pgo._tables
+    pgo._tables = lambda _g: tab
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            one = pgo.solve(g, max_iters=1, cg_iters=cg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            pgo.solve(g, max_iters=1, cg_iters=cg).cost.cpu()
+        wall = time.perf_counter() - t0
+    finally:
+        pgo._tables = orig
+    if not np.isfinite(float(one.cost)):
+        fail("graph: the LM iteration under sync debugging is not finite")
+    act = device_activity(prof)
+    if act is None:
+        print("graph: one LM iteration ran with sync debugging set to raise "
+              "(no host synchronisation after the topology read); "
+              f"torch.profiler saw no device event: idle share not measured "
+              f"({card})")
+    else:
+        kern, copies, busy, span = act
+        print(f"graph: one LM iteration of {cg} CG iterations ran with sync "
+              f"debugging set to raise (no host synchronisation after the "
+              f"topology read); under torch.profiler {kern} kernel launches "
+              f"and {copies} copies or fills, device busy {1e-3 * busy:.3f} "
+              f"ms of a {1e-3 * span:.3f} ms span: idle share "
+              f"{100 * (1 - busy / span):.1f} % (host wall {1e3 * wall:.1f} "
+              f"ms with the profiler on) ({card})")
+
+    phase(f"pose graph: K = {GRAPH_MID['k']} on the card against the CPU")
+    lm, cg = GRAPH_MID_ITERS
+    g_cpu = _ring_graph(**GRAPH_MID)
+    g_dev = pgo.PoseGraph(*(t.to("cuda") for t in g_cpu))
+    pgo.solve(g_dev, max_iters=1, cg_iters=cg).cost.cpu()
+    t0 = time.perf_counter()
+    on_card = pgo.solve(g_dev, max_iters=lm, cg_iters=cg)
+    c_card = float(on_card.cost)
+    ms_card = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    on_cpu = pgo.solve(g_cpu, max_iters=lm, cg_iters=cg)
+    ms_cpu = 1e3 * (time.perf_counter() - t0)
+    k = GRAPH_MID["k"]
+    gap = float(np.abs(on_card.poses[:k].cpu().numpy()
+                       - on_cpu.poses[:k].numpy()).max())
+    print(f"graph: K = {k}, {lm} LM x {cg} CG iterations: card {ms_card:.1f}"
+          f" ms, CPU {ms_cpu:.1f} ms; cost {float(on_card.cost0):.2f} -> "
+          f"{c_card:.5f} on the card, {float(on_cpu.cost):.5f} on the CPU; "
+          f"poses at most {gap:.3e} apart ({card})")
+    if not gap < GRAPH_MID_CPU_TOL:
+        fail(f"graph: the card's K = {k} solve is {gap} from the CPU's")
+    # the pose graph is plain PyTorch in both packages: no hand kernel
+    return {"graph": {key: 0 for key in (
+        "k3", "k4", "k1_standalone", "k2_standalone", "plain", "stepwise",
+        "registrations", "k1", "k2")}}
+
+
+# the multi-lap spiral of tests/test_pipeline_lc_multi.py (copied: no jax)
+SPIRAL_SCANS = 400        # its config is the courtyard's, LC_CFG
+
+
+def spiral_streams(sim, world, n_scans: int, r0: float = 7.0,
+                   lap_gap: float = 1.8, step: float = 0.33, seed: int = 2):
+    """An outward spiral around the courtyard's center: every lap passes
+    the same structures ``lap_gap`` to the side, so keyframes keep being
+    admitted and closures keep coming."""
+    rng = np.random.default_rng(seed)
+    c = lap_gap / (2 * np.pi)
+    th_fine = np.linspace(0, 7.2 * np.pi, 20000)
+    r_fine = r0 + c * th_fine
+    s_fine = np.concatenate([[0.0], np.cumsum(
+        np.sqrt(r_fine[:-1] ** 2 + c ** 2) * np.diff(th_fine))])
+    th = np.interp(np.arange(n_scans) * step, s_fine, th_fine)
+    r = r0 + c * th
+    x = r * np.sin(th)
+    y = r0 - r * np.cos(th)
+    yaw = np.unwrap(np.arctan2(np.gradient(y), np.gradient(x)))
+    poses = np.tile(np.eye(4), (n_scans, 1, 1))
+    poses[:, 0, 0] = np.cos(yaw)
+    poses[:, 0, 1] = -np.sin(yaw)
+    poses[:, 1, 0] = np.sin(yaw)
+    poses[:, 1, 1] = np.cos(yaw)
+    poses[:, 0, 3] = x
+    poses[:, 1, 3] = y
+    scans = [sim.simulate_scan(world, sim.sensor_from_body(poses[i]),
+                               n_az=720, n_el=12, noise=0.03, rng=rng)
+             for i in range(n_scans)]
+    return sim.SensorStreams(np.arange(n_scans) * 0.1, scans, poses,
+                             np.zeros(0), np.zeros((0, 4, 4)), np.zeros(0),
+                             np.zeros((0, 4)))
+
+
+def multilap_run(card: str) -> dict:
+    """The 400-scan spiral with ``tpu.sync_backend`` in 32-scan batches:
+    the bounds of tests/test_pipeline_lc_multi.py."""
+    from simpleslam_tpu_torch.models.backend import LC_VAR
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.pipeline import app
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
+
+    name = "multi-lap"
+    phase(f"multi-lap loop closure ({SPIRAL_SCANS}-scan spiral, "
+          "sync_backend)")
+    t0 = time.perf_counter()
+    streams = spiral_streams(sim, make_courtyard(sim, LC_RADIUS, seed=0),
+                             SPIRAL_SCANS)
+    print(f"{name}: simulated {SPIRAL_SCANS} scans in "
+          f"{time.perf_counter() - t0:.1f} s (host numpy, not part of the "
+          "path)")
+    system = app.SlamSystem(dict(LC_CFG, torch={"device": "cuda"}))
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_counts()
+    with GnRecorder() as rec:
+        result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY)
+        torch.cuda.synchronize()
+    launches = launch_counts(rec)
+    ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
+    report_streamed(name, result, SPIRAL_SCANS, ate, launches, card)
+    be, lcm = system.backend, system.loop_closure
+    t = result.timers
+    print(f"{name}: LC queries {lcm.n_queries}, candidates "
+          f"{lcm.n_candidates}, accepted {be.n_lc_edges}, dropped "
+          f"{lcm.dropped_closures}; solves run {be.n_solves}, skipped "
+          f"{be.n_skipped_noop_solves}; lc {1e3 * t.mean('lc'):.2f} ms x "
+          f"{t.count['lc']} events, backend {1e3 * t.mean('backend'):.2f} ms "
+          f"x {t.count['backend']} events ({card})")
+    check_path(name, result, SPIRAL_SCANS, ate, None, STREAMED_CONV_MIN,
+               launches)
+    if be.n_lc_edges < 3 or lcm.dropped_closures != 0:
+        fail(f"{name}: {be.n_lc_edges} closures accepted, "
+             f"{lcm.dropped_closures} dropped")
+    kfs = system.map_manager.kf_obj.keyframes
+
+    def gt_at(stamp):
+        return streams.gt_poses[int(np.argmin(np.abs(
+            streams.scan_stamps - stamp)))]
+
+    worst = 0.0
+    for n in range(len(be.edge_i)):
+        if not np.allclose(be.edge_var[n], LC_VAR):
+            continue
+        i, j = be.edge_i[n], be.edge_j[n]
+        err = np.linalg.inv(np.linalg.inv(gt_at(kfs[i].stamp))
+                            @ gt_at(kfs[j].stamp)) @ be.edge_T[n]
+        worst = max(worst, float(np.linalg.norm(err[:3, 3])))
+    idx = np.array([int(np.argmin(np.abs(streams.scan_stamps - kf.stamp)))
+                    for kf in kfs])
+    gt = streams.gt_poses[idx][:, :3, 3]
+    post = float(np.sqrt(np.mean(np.sum(
+        (gt - np.stack([kf.pose for kf in kfs])[:, :3, 3]) ** 2, 1))))
+    raw = float(np.sqrt(np.mean(np.sum(
+        (gt - result.poses[idx][:, :3, 3]) ** 2, 1))))
+    print(f"{name}: closures at most {worst:.4f} m from the truth; keyframe "
+          f"ATE {post:.4f} m after the solves, {raw:.4f} m raw, over "
+          f"{len(kfs)} keyframes ({card})")
+    if not worst < 0.3:
+        fail(f"{name}: a closure lies {worst} m from the truth")
+    if not (post <= raw + 0.02 and post < 0.3):
+        fail(f"{name}: post-solve keyframes worse than raw odometry")
+    batch_probe(name, system, streams, result, BENCH_SYNC_EVERY, card)
+    return {"multilap": launches}
+
+
 NEW_PATHS = ("lio", "ndt", "vgicp", "threaded", "k4", "recorded", "probe",
-             "memcheck", "mesh")
+             "memcheck", "loc", "hard", "graph", "multilap", "mesh")
 
 
 def new_paths(which, streams, card: str, full=None):
-    """Phases 8-16, those named in ``which``: ({path name: launch counts},
+    """Phases 8-16 and 18-21, those named in ``which``: ({path name: launch counts},
     K4's kernels-line entry or None, K3's times and bounds on the dense and
     table targets or None). ``full`` is the streamed full run's
     (system, result), made here when a phase needs it and none is given."""
@@ -2503,6 +3132,15 @@ def new_paths(which, streams, card: str, full=None):
             out[f"streamed_{kind}"] = register_runs(kind, head, card)
     if "threaded" in which:
         out["threaded"] = threaded_run(head, card)
+    if "loc" in which:
+        out.update(loc_paths(streams, card))
+    if "hard" in which:
+        out.update(hard_paths(card))
+    if "graph" in which:
+        out.update(graph_paths(card))
+    if "multilap" in which:
+        out.update(multilap_run(card))
+        torch.cuda.empty_cache()
     return out, k4_entry, k3_targets
 
 

@@ -326,6 +326,13 @@ def _make_hvp(lin: _Lin, lam: torch.Tensor, tab: _Tables, axis=None):
     return hvp
 
 
+def _inv(a: torch.Tensor) -> torch.Tensor:
+    """Batched inverse of the damped diagonal blocks (positive definite by
+    construction) without ``torch.linalg.inv``'s singularity check, which
+    reads the device on CUDA: a PCG iteration then reads nothing."""
+    return torch.linalg.inv_ex(a)[0]
+
+
 # Largest node count solved densely: H is (6K, 6K), a 9.4 MB matrix at
 # K = 512; above it dense memory grows O(K^2) and PCG takes over.
 DENSE_SOLVE_MAX_K = 512
@@ -375,7 +382,7 @@ def _pcg_ksharded(lin: _Lin, lam, damped_diag, mask, iters: int, axis,
     b = -lin.grad
     dt = b.dtype
     m_sl = mask[sl][:, None].to(dt)
-    pinv_sl = torch.linalg.inv(damped_diag[sl])      # this rank's slice only
+    pinv_sl = _inv(damped_diag[sl])  # this rank's slice only
     diag_sl = lin.diag[sl]
     damp_sl = torch.maximum(
         lam * torch.diagonal(diag_sl, dim1=-2, dim2=-1), lam * 1e-6)
@@ -500,10 +507,10 @@ def solve_impl(g: PoseGraph, max_iters: int = 10, cg_iters: int = 64,
 
     def precond_inv(damped_diag):
         if axis is None or not shard_cg or K % n_dev != 0 or n_dev == 1:
-            return torch.linalg.inv(damped_diag)
+            return _inv(damped_diag)
         # the K 6x6 inversions split over the ranks, one gather
         sl = axis.shard(K)
-        return axis.all_gather(torch.linalg.inv(damped_diag[sl])).reshape(
+        return axis.all_gather(_inv(damped_diag[sl])).reshape(
             K, 6, 6)
 
     def expand(lin: _Lin) -> _Lin:
@@ -514,7 +521,7 @@ def solve_impl(g: PoseGraph, max_iters: int = 10, cg_iters: int = 64,
         return lin._replace(bij=bij, ei=topo.ei, ej=topo.ej)
 
     poses, lin = g.poses, lin0
-    lam = torch.tensor(lambda0, dtype=dt, device=dev)
+    lam = torch.full((), lambda0, dtype=dt, device=dev)
     it = torch.zeros((), dtype=torch.int32, device=dev)
     accepted = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(max_iters):

@@ -79,10 +79,20 @@ def test_imports_without_jax_triton_or_reference():
     assert r.stdout.startswith("ok")
 
 
-def test_simulator_copy_is_bit_identical():
-    kw = dict(n_scans=3, seed=3, n_az=180, n_el=8)
-    a = jsim.simulate_sequence(jsim.make_world(seed=3), **kw)
-    b = tsim.simulate_sequence(tsim.make_world(seed=3), **kw)
+@pytest.mark.parametrize("world,extra", [
+    (lambda s: s.make_world(seed=3), {}),
+    (lambda s: s.make_adversarial_world(seed=5), {}),
+    (lambda s: s.make_sloped_world(seed=6, slope_deg=6.0), {}),
+    (lambda s: s.make_forest_world(seed=3), {"n_dynamic": 4}),
+    (lambda s: s.make_corridor_world(), {"loop": False}),
+], ids=["make_world", "adversarial", "sloped", "forest_dynamic", "corridor"])
+def test_simulator_copy_is_bit_identical(world, extra):
+    """The port's simulator gives the JAX package's sequences bit for bit,
+    on the plain world and on each hard world (the forest with moving
+    obstacles)."""
+    kw = dict(n_scans=3, seed=3, n_az=180, n_el=8, **extra)
+    a = jsim.simulate_sequence(world(jsim), **kw)
+    b = tsim.simulate_sequence(world(tsim), **kw)
     for name in ("scan_stamps", "gt_poses", "wheel_stamps", "wheel_poses",
                  "imu_stamps", "imu_quats"):
         np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
