@@ -16,8 +16,14 @@ fails with a nonzero exit on the first problem:
    version ``gn_loop_stepwise`` from the on-pose start and from a 0.25 m
    offset start, degeneracy guard off and on: pose within 1e-4 m and
    1e-5 rad, the same iterations / gathers / converged and n_valid within
-   4 rows, bit-identical across two calls; median times from CUDA events, K3's
-   device time from ``torch.profiler``, and the grid barrier's cost;
+   4 rows, bit-identical across two calls; then K3 against the stepwise
+   loop at the edges of its layout (1000 queries, 500 valid ones, none valid)
+   on the same submap as a merged map, a dense map and a sorted table of
+   65536 and of 4096 keys (above and within the kernel's sampled key index);
+   median times from CUDA events, K3's device time from ``torch.profiler``,
+   the grid barrier's cost and the loop's barrier floor (iterations x one
+   barrier), and K3's device time split into a launch's fixed part and an
+   iteration with a K1 and with a K2 phase;
 4. the lo-mode LOAM slice: ``SlamSystem`` + ``run_offline`` on the bench's
    ``lo`` config and sequence;
 5. streamed lo: the bench's ``lo`` config through ``run_streamed`` (batches
@@ -151,8 +157,9 @@ fails with a nonzero exit on the first problem:
    ``scan2map`` paths of 13 reading the dense map's or the table's
    candidates, and the standalone launches of the mesh path; for K4 its
    own launches, on the mesh path's dense and table registrations; K3's
-   times and bounds on those targets), the nvidia-smi line, and last a
-   JSON line ``{"ok": true, "device": ...}``.
+   times and bounds on those targets, its device-time split and barrier
+   floor), the nvidia-smi line, and last a JSON line
+   ``{"ok": true, "device": ...}``.
 
 ``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,loc,hard,graph,``
 ``multilap,mesh`` (any subset) drives just the named paths of 8-21 after
@@ -418,10 +425,9 @@ def build() -> None:
             print(f"  ptxas: {line.strip()}")
 
 
-def kernel_inputs(dev):
-    """A real merged map from a simulated submap, and one scan's queries."""
-    from simpleslam_tpu_torch.ops import geometry as geo
-    from simpleslam_tpu_torch.ops import loam
+def kernel_submap(dev):
+    """A simulated submap (downsampled, with its centre), and one scan's
+    queries with the scan's pose."""
     from simpleslam_tpu_torch.ops import pointcloud as pcops
     from simpleslam_tpu_torch.ops import voxel as vox
     from simpleslam_tpu_torch.pipeline import simulate as sim
@@ -438,12 +444,22 @@ def kernel_inputs(dev):
                            SUBMAP_CAP, dev)
     center = torch.tensor(poses[15][:3, 3].astype(np.float32), device=dev)
     ds_sub = pcops.compact(vox.voxel_downsample(sub, 0.5, center), SUBMAP_CAP)
-    vm = vox.build_merged_dense_voxel_map(ds_sub, 2.0, center, DIMS, SLAB)
     scan = sim.simulate_scan(world, sim.sensor_from_body(poses[16]),
                              n_az=1800, n_el=16, rng=rng)
     src = pcops.compact(vox.voxel_downsample(
         pcops.from_numpy(scan, 32768, dev), 0.5), N_QUERIES)
-    pose = torch.tensor(poses[16].astype(np.float32), device=dev)
+    return ds_sub, center, src, torch.tensor(poses[16].astype(np.float32),
+                                             device=dev)
+
+
+def kernel_inputs(dev):
+    """A real merged map from a simulated submap, and one scan's queries."""
+    from simpleslam_tpu_torch.ops import geometry as geo
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import voxel as vox
+
+    ds_sub, center, src, pose = kernel_submap(dev)
+    vm = vox.build_merged_dense_voxel_map(ds_sub, 2.0, center, DIMS, SLAB)
     off = offset_pose(pose)
     print(f"map rows {tuple(vm.rows.shape)} int16 "
           f"({vm.rows.numel() * 2 / 1e6:.1f} MB), queries {src.capacity} "
@@ -514,11 +530,22 @@ def hold_kernels(label: str, vm, src, sqrt_r, p_on, p_off) -> dict:
 
 
 def time_kernels(vm, src, sqrt_r, p_on, p_off) -> dict:
-    """Median ms of each kernel's wrapper and of its plain version."""
+    """Median ms of each kernel's wrapper and of its plain version, and K1's
+    and K2's device ms per launch (torch.profiler; each wrapper launches the
+    kernel and a one-block sum of its block partials, not counted)."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
     planes = lk.fit_and_linearize_merged(vm, p_on, sqrt_r, src.mask)[3]
+    dev = {
+        "k1_dev": kernel_device_ms_how(
+            "fit_and_linearize_merged_kernel",
+            lambda: lk.fit_and_linearize_merged(vm, p_on, sqrt_r, src.mask)),
+        "k2_dev": kernel_device_ms_how(
+            "plane_normal_equations_kernel",
+            lambda: lk.plane_normal_equations(planes, p_off, sqrt_r))}
     return {
+        **{k: v[0] for k, v in dev.items()},
+        **{k + "_how": v[1] for k, v in dev.items()},
         "k1": time_ms(lambda: lk.fit_and_linearize_merged(
             vm, p_on, sqrt_r, src.mask)),
         "k1_plain": time_ms(lambda: lk.fit_and_linearize_merged_plain(
@@ -631,7 +658,7 @@ def time_fused(vm, src, pose, card: str, label: str) -> dict:
 
     small = pose.clone()
     small[:3, 3] += torch.tensor(SMALL_OFFSET, device=pose.device)
-    t, rows = {}, []
+    t, rows, n_iters = {}, [], {}
     for key, tag, start in (("k3", "on-pose", pose),
                             ("k3_small", "small offset", small),
                             ("k3_off", "offset", offset_pose(pose))):
@@ -647,6 +674,7 @@ def time_fused(vm, src, pose, card: str, label: str) -> dict:
                                      loam.MAX_ITERS, 0.0))
         t[key + "_dev"], t[key + "_dev_how"] = dev, how
         rows.append((gathers, iters - gathers, dev))
+        n_iters[key] = iters
         print(f"  K3 from the {tag} start ({iters} iterations, {gathers} K1 "
               f"phases): median {t[key]:.4f} ms per call, device time "
               f"{dev:.4f} ms per launch ({how}), stepwise "
@@ -654,17 +682,70 @@ def time_fused(vm, src, pose, card: str, label: str) -> dict:
     one = time_ms(lambda: lk.barrier_probe(src.xyz.device, 1))
     many = time_ms(lambda: lk.barrier_probe(src.xyz.device, 257))
     t["barrier"] = (many - one) / 256.0
-    print(f"  one grid barrier {1e3 * t['barrier']:.2f} us ({card})")
+    # the loop's own floor, which the byte bound does not count: one grid
+    # barrier per iteration
+    t["barrier_floor_ms"] = {k: n * t["barrier"] for k, n in n_iters.items()}
+    print(f"  one grid barrier {1e3 * t['barrier']:.2f} us; the loop's barrier"
+          f" floor {1e3 * t['barrier_floor_ms']['k3']:.2f} us on-pose, "
+          f"{1e3 * t['barrier_floor_ms']['k3_off']:.2f} us from the offset "
+          f"({card})")
     a = np.array([[1.0, g, k] for g, k, _ in rows])
+    t["split_ms"] = None
     if abs(np.linalg.det(a)) > 1e-9:
         fixed, k1_it, k2_it = np.linalg.solve(
             a, np.array([d for _, _, d in rows]))
+        t["split_ms"] = {"per_launch": fixed, "per_k1_iteration": k1_it,
+                         "per_k2_iteration": k2_it}
         print(f"  K3 device time split from those three: {1e3 * fixed:.1f}"
               f" us per launch + {1e3 * k1_it:.1f} us per iteration with "
               f"a K1 phase + {1e3 * k2_it:.1f} us per iteration with a K2 "
               f"phase (each with its barrier, sums and small step) "
               f"({card}, {label})")
     return t
+
+
+# the K3 edge cases: a query count that is no multiple of a warp, fewer
+# valid queries than warps on the grid, none valid
+K3_EDGE_QUERIES = 1000
+K3_EDGE_VALID = 500
+
+
+def k3_edge_cases(tally: FusedTally, dev) -> None:
+    """K3 against the stepwise loop at the edges of its layout, on every
+    target built from phase 3's submap (the sorted table both above and
+    within the sampled index's budget of keys), from the scan's pose and
+    the offset start, guard off and on."""
+    from simpleslam_tpu_torch.ops import pointcloud as pcops
+    from simpleslam_tpu_torch.ops import voxel as vox
+
+    ds_sub, center, src, pose = kernel_submap(dev)
+    budget = 4096   # tg::kIndexBudget in csrc/target_gather.h
+    targets = {
+        "merged map": vox.build_merged_dense_voxel_map(ds_sub, 2.0, center,
+                                                       DIMS, SLAB),
+        "dense map": vox.build_dense_voxel_map(ds_sub, 2.0, center, DIMS,
+                                               SLAB),
+        f"table of {TABLE_VOXELS} keys": vox.build_voxel_map(
+            ds_sub, TABLE_GRID, center, TABLE_VOXELS, TABLE_SLAB),
+        f"table of {budget} keys": vox.build_voxel_map(
+            ds_sub, TABLE_GRID, center, budget, TABLE_SLAB)}
+    few = src.mask & (torch.cumsum(src.mask.to(torch.int32), 0)
+                      <= K3_EDGE_VALID)
+    cases = {
+        f"Q={K3_EDGE_QUERIES}": pcops.PointCloud(
+            *(t[:K3_EDGE_QUERIES].contiguous() for t in src)),
+        f"{K3_EDGE_VALID} valid": src._replace(mask=few),
+        "all masked": src._replace(mask=torch.zeros_like(src.mask))}
+    before = tally.n
+    for kind, vm in targets.items():
+        for case, s in cases.items():
+            for tag, start in (("on-pose", pose), ("offset", offset_pose(pose))):
+                for degen in (0.0, DEGEN):
+                    tally.compare(f"edge {kind}, {case}, {tag}, guard "
+                                  f"{'on' if degen else 'off'}", s, vm, start,
+                                  degen, verbose=False)
+    print(f"  K3 edge cases ({', '.join(cases)}) on {', '.join(targets)}: "
+          f"{tally.n - before} comparisons with the stepwise loop")
 
 
 def kernels(card: str):
@@ -674,10 +755,12 @@ def kernels(card: str):
     errs = hold_kernels("offline", vm, src, sqrt_r, p_on, p_off)
     tally = FusedTally()
     hold_fused(tally, "offline", vm, src, pose)
+    k3_edge_cases(tally, dev)
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
-        print(f"  {k.upper()} median {t[k]:.4f} ms, plain {t[k + '_plain']:.4f}"
-              f" ms ({card}, Q={N_QUERIES})")
+        print(f"  {k.upper()} median {t[k]:.4f} ms per wrapper call, device "
+              f"{1e3 * t[k + '_dev']:.2f} us per launch ({t[k + '_dev_how']}),"
+              f" plain {t[k + '_plain']:.4f} ms ({card}, Q={N_QUERIES})")
     time_fused(vm, src, pose, card, f"Q={N_QUERIES}")
     src_file = "simpleslam_tpu_torch/csrc/loam_kernels.cu"
     results = [
@@ -1011,8 +1094,10 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
     tally.t_err = max(tally.t_err, before)
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
-        print(f"  {k.upper()} median {t[k]:.4f} ms, plain {t[k + '_plain']:.4f}"
-              f" ms ({card}, Q={cap}, streamed full inputs)")
+        print(f"  {k.upper()} median {t[k]:.4f} ms per wrapper call, device "
+              f"{1e3 * t[k + '_dev']:.2f} us per launch ({t[k + '_dev_how']}),"
+              f" plain {t[k + '_plain']:.4f} ms ({card}, Q={cap}, streamed "
+              f"full inputs)")
     t.update(time_fused(vm, src, pose, card, f"Q={cap}, streamed full inputs"))
     iters, gathers = counts["on-pose"]
     bd = bounds(cap, n_valid_q, 8 * vm.slab_pts, gathers, iters)
@@ -1026,9 +1111,12 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
     print(f"  K3 from the on-pose start ({gathers} K1 phases in {iters} "
           f"iterations): device time {1e3 * t['k3_dev']:.1f} us per "
           f"launch = {100 * bd['k3'][0] / t['k3_dev']:.2f} % of the "
-          f"bound's rate; from the offset start ({gathers_o} K1 phases in "
-          f"{iters_o} iterations) bound {1e3 * bd_off['k3'][0]:.3f} us, "
-          f"device {1e3 * t['k3_off_dev']:.1f} us ({card})")
+          f"bound's rate, barrier floor "
+          f"{1e3 * t['barrier_floor_ms']['k3']:.2f} us; from the offset "
+          f"start ({gathers_o} K1 phases in {iters_o} iterations) bound "
+          f"{1e3 * bd_off['k3'][0]:.3f} us, barrier floor "
+          f"{1e3 * t['barrier_floor_ms']['k3_off']:.2f} us, device "
+          f"{1e3 * t['k3_off_dev']:.1f} us ({card})")
     return errs, t, bd
 
 
@@ -1537,6 +1625,8 @@ def scan2map_on_targets(system, streams, result, targets, card: str):
         for start in (pose, offset_pose(pose)):
             cases.append((src, start, loam.scan2map(src, merged, start)))
     out, k3 = {}, {}
+    one = time_ms(lambda: lk.barrier_probe(dev, 1))
+    barrier = (time_ms(lambda: lk.barrier_probe(dev, 257)) - one) / 256.0
     # ms per registration of the stepwise loop when it was these targets'
     # production loop (PERF.md section 6)
     before = {"dense": 13.75, "table": 12.53}
@@ -1618,6 +1708,7 @@ def scan2map_on_targets(system, streams, result, targets, card: str):
                                      loam.MAX_ITERS, 0.0))
         t["bound_ms"], t["bound_by"] = target_k3_bound(kind, vm, src, start,
                                                        g0, iters)
+        t["barrier_floor_ms"] = iters * barrier
         t["launches"] = launches["k3"]
         t["max_abs_err"] = tally.t_err
         print(f"{name}: K3 from scan {idx[-1]}'s recorded pose ({iters} "
@@ -1625,7 +1716,8 @@ def scan2map_on_targets(system, streams, result, targets, card: str):
               f"call, device {1e3 * t['device_ms']:.2f} us "
               f"({t['device_ms_how']}) = "
               f"{100 * t['bound_ms'] / t['device_ms']:.2f} % of the bound's "
-              f"rate (bound {1e3 * t['bound_ms']:.3f} us by {t['bound_by']}); "
+              f"rate (bound {1e3 * t['bound_ms']:.3f} us by {t['bound_by']}, "
+              f"barrier floor {1e3 * t['barrier_floor_ms']:.2f} us); "
               f"stepwise {t['plain_ms']:.4f} ms ({card})")
         k3[kind] = t
         out[name] = {"k1": gathers, "k2": others, "k3": launches["k3"],
@@ -3215,6 +3307,9 @@ def main() -> int:
     for k, key in zip(kern, ("k1", "k2", "k3")):
         k["max_abs_err"] = max(k["max_abs_err"], main_errs[key])
         k["ms"], k["plain_ms"] = main_t[key], main_t[key + "_plain"]
+        if key != "k3":
+            k["device_ms"] = main_t[key + "_dev"]
+            k["device_ms_how"] = main_t[key + "_dev_how"]
         k["bound_ms"], k["bound_by"] = main_bd[key]
         # no single PyTorch call computes a gather, a 5-round selection, a
         # 3x3 eigensolve and a gated 28-term reduction (or a loop of them)
@@ -3245,6 +3340,14 @@ def main() -> int:
     kern[2]["device_ms_from_offset_start"] = main_t["k3_off_dev"]
     kern[2]["device_ms_from_offset_start_how"] = main_t["k3_off_dev_how"]
     kern[2]["grid_barrier_ms"] = main_t["barrier"]
+    # K3's device time split into a launch's fixed part and the cost of an
+    # iteration with a K1 and with a K2 phase (three starts, phase 6), and
+    # the loop's barrier floor (iterations x one grid barrier) beside its
+    # byte bound
+    kern[2]["device_split_ms"] = main_t["split_ms"]
+    kern[2]["barrier_floor_ms"] = main_t["barrier_floor_ms"]["k3"]
+    kern[2]["barrier_floor_ms_from_offset_start"] = \
+        main_t["barrier_floor_ms"]["k3_off"]
     kern[2]["max_abs_err_is"] = "pose translation against gn_loop_stepwise, metres"
     # K3 on the other two targets (phase 13): its launches there, its time,
     # device time and bound from the last scan's recorded pose

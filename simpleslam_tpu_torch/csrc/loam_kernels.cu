@@ -7,7 +7,7 @@
 // the weight s = 1 - 0.9 |d| / sqrt(r) and the J row s [n, p x n], reduced
 // to J^T J (6x6), J^T e (6) and the valid-row count. The TPU kernel carried
 // the sums across a sequential grid; blocks here run in no order, so every
-// reduction goes through per-block partial sums that are added in block
+// reduction goes through per-block partial sums that are added in a fixed
 // order. No float atomics anywhere: results repeat bit for bit run to run.
 //
 // K1 loam_fit_and_linearize_merged: the whole TPU kernel with the merged-row
@@ -21,35 +21,60 @@
 //    after the plane fit) against a frozen plane set, one thread per query.
 //    Bound: launch overhead and a (Q, 10)-float stream (bytes).
 // K3 loam_gn_loop: a scan's whole Gauss-Newton registration in one
-//    cooperative launch, K1's and K2's bodies as its phases (the TPU package
+//    cooperative launch, K1's and K2's work as its phases (the TPU package
 //    runs the same loop as one lax.while_loop around the kernel), on any of
 //    the three LOAM targets: the merged map (one int16 row per query), the
 //    dense map (the corner-selected 2x2x2 block, 8 f32 rows of M points)
-//    and the sorted voxel table (a key search for each of 27 cells, M f32
-//    points each); the K1 phase is templated on that candidate source.
-//    Bound: the candidate reads of its K1 phases (bytes); what it removes is
+//    and the sorted voxel table (27 cells of M f32 points, found by key
+//    search); the K1 phase is templated on that candidate source.
+//    Bound: the candidate reads of its K1 phases (bytes), and the loop's
+//    own floor of one grid barrier per iteration; what it removes is
 //    everything between them: the launches, the 6x6 solve and pose update
 //    as separate small kernels, and the host read that decided each
-//    iteration. Design:
-//    - one persistent block per SM; block b owns queries b, b + G, ... (the
-//      scan's valid queries come first, so striding balances the SMs);
-//    - a block keeps its queries' source points, sqrt(r), validity and
-//      fitted planes in shared memory over all iterations, so a K2 phase
-//      reads nothing from device memory;
-//    - in a K1 phase each warp owns a query at a time and double-buffers
-//      its candidates with cp.async: the next valid query's row (or 8 dense
-//      rows, or its table cells' set points) is in flight while the five
-//      selection rounds run on the current one; masked-out queries are
-//      skipped before any load; the index math of the dense and table
-//      sources is csrc/target_gather.h, which the CPU tests also compile;
-//    - one grid barrier per iteration (an integer counter, __threadfence):
-//      blocks publish 28 partial sums, pass the barrier, then each block
-//      adds all partials in block order and takes the small step
-//      (csrc/gn_step.h) itself. Every block computes the same step from the
-//      same numbers, so all agree on every branch around the barrier;
-//      partials alternate between two buffers so a fast block cannot
-//      overwrite what a slow one still reads.
-//
+//    iteration. A warp's time is a chain of dependent instructions, not
+//    bytes (tools/k3_breakdown.py), so the design keeps the chains short:
+//    - one persistent block of 16 warps per SM; block b owns queries b,
+//      b + G, ... (the scan's valid queries come first, so striding
+//      balances the SMs) and keeps their source points, sqrt(r), validity,
+//      fitted planes and selection records in shared memory over all
+//      iterations, so a K2 phase reads nothing from device memory;
+//    - a K1 phase on the table first finds the cells of all the block's
+//      queries at once, one thread per z-run of three cells, through a
+//      sampled index of the keys in shared memory (csrc/target_gather.h;
+//      nine searches a query, most levels in shared memory), so no search
+//      sits on a warp's chain;
+//    - then each warp owns a valid query at a time and double-buffers its
+//      candidates with cp.async: the next query's row (or 8 dense rows,
+//      four lanes a row, or its found cells' set points, one lane a cell)
+//      is in flight while this one's selection runs. The selection
+//      (csrc/select5.h) sorts each lane's candidates once and takes five
+//      rounds of two warp reductions over the lanes' heads; it leaves the
+//      query's gate and its five points in the query's record, and no
+//      more: the scalar tail is not repeated on 32 lanes;
+//    - every iteration, thread t then takes the block's queries t, t + T,
+//      ...: in a K1 phase it fits each record's plane (centroid, 3x3
+//      eigensolve, gates: the scalar tail, one query a thread, once per
+//      query), in a K2 phase it reads the kept plane, and adds the query's
+//      row to its sums;
+//    - the block's sums, in double: every thread's sums staged in shared
+//      memory, warp w adds sums w and w + 16, lanes over the threads in
+//      order, then the warp's fixed tree; the partials go to device memory;
+//    - one grid barrier per iteration (an integer counter, a release add
+//      and acquire loads); then every block adds all blocks' partials the
+//      same way (warp per sum, lanes over the blocks in order, all loads
+//      first, then the tree), rounds each sum to float once and takes the
+//      small step (csrc/gn_step.h) on one thread. Every block computes
+//      the same step from the same numbers, so all agree on every branch
+//      around the barrier; partials alternate between two buffers so a
+//      fast block cannot overwrite what a slow one still reads.
+//    Numerics: the per-query arithmetic and the plane set are those of the
+//    plain version, op for op; the rows' f32 products are summed in double
+//    in a fixed order and rounded to float once, where the kernel before
+//    this layout summed in float (a tree over each warp, then the warps,
+//    then the blocks one after another), so K3's result rows part from
+//    that kernel's at rounding size, and repeat bit for bit from launch to
+//    launch.
+
 // K4 loam_fit_and_linearize_candidates: the TPU kernel in its own form,
 //    candidates in, normal equations out: (Q, C, 3) f32 candidates and
 //    (Q, C) flags in device memory, C <= 256 (the sharded path's form, and
@@ -62,8 +87,9 @@
 //      query after next, the coordinates of the next query (only the
 //      16-byte chunks that hold a set flag), and the selection of this
 //      one, so two queries' loads are in flight behind every selection;
-//    - the selection is the warp's two __reduce_min_sync rounds, as in K1;
-//      the five chosen points go to a per-warp record, and the scalar tail
+//    - the selection is the warp's sorted-lane rounds (csrc/select5.h), as
+//      in K1 and K3; the five chosen points go to a per-warp record, and the
+//      scalar tail
 //      (centroid, eigensolve, gates, J row, accumulate) runs one lane per
 //      query over up to 32 records at once, where K1 repeats it on 32
 //      lanes;
@@ -86,6 +112,7 @@
 #include <mutex>
 
 #include "gn_step.h"
+#include "select5.h"
 #include "target_gather.h"
 
 namespace {
@@ -107,10 +134,14 @@ constexpr int kK2Threads = 256;
 constexpr int kK3Warps = 16;    // warps of the one K3 block per SM
 constexpr int kK3Threads = kK3Warps * 32;
 constexpr int kRowBufElems = kMaxCand * 3;   // int16 per staged row
-constexpr int kPartStride = 32;  // floats per block partial: sums, r_max, pad
-constexpr int kQueryFloats = 10;  // K3 per-query floats: p_src, sqrt_r, plane
+constexpr int kPartStride = 32;  // K3's block partial: 28 sums, r_max, pad
+                                 // (doubles)
+constexpr int kRecFloats = 15;   // K3 record: the five selected points
+constexpr int kQueryFloats = 10 + kRecFloats;  // p_src, sqrt_r, plane, record
 constexpr int kF32BufBytes = kMaxCand * 3 * 4;   // f32 candidates per buffer
 constexpr int kCellMeta = 32;   // ints per staged table buffer: 27 counts
+constexpr int kIndexBudgetInts = tg::kIndexBudget;   // K3's sampled keys
+static_assert(kIndexBudgetInts % kK3Threads == 0, "whole sample loads");
 constexpr float kPadHalf = 0.5f * 1.0e6f;   // 0.5 * pointcloud.PAD_COORD
 constexpr int kK4Warps = 4;     // warps per K4 block
 constexpr int kK4Threads = kK4Warps * 32;
@@ -297,14 +328,15 @@ struct StagedRows {
 
 // K3's staged table cells (shared memory): cell c / m holds cnt[c / m] set
 // points (0 where its key was not found), as voxel.gather_neighbors reads
-// them; the rest of a cell was not copied.
+// them; the rest of a cell was not copied. c / m is (c * m_recip) >> 16,
+// m_recip = ceil(2^16 / m), exact for c < 256 and m <= 9.
 struct StagedCells {
     const float* s;
     const int* cnt;
-    int m;
+    int m, m_recip;
     __device__ __forceinline__ bool get(int c, float& x, float& y,
                                         float& z) const {
-        const int cell = c / m;
+        const int cell = (c * m_recip) >> 16;
         if (c - cell * m >= cnt[cell]) return false;
         x = s[3 * c];
         y = s[3 * c + 1];
@@ -328,7 +360,30 @@ struct StagedCand {
     }
 };
 
-// The five nearest candidates of one query by argmin rounds, by one warp:
+// The selection rounds of select5.h on one warp: this lane's sorted
+// candidates, the rounds' two reductions by the hardware.
+template <int S>
+struct WarpRounds {
+    s5::Lane<S> lane;
+    S5_HD unsigned min_d2() const {
+#ifdef __CUDA_ARCH__
+        return __reduce_min_sync(0xffffffffu, lane.head_d2());
+#else
+        return 0u;
+#endif
+    }
+    S5_HD unsigned min_index(unsigned m) const {
+#ifdef __CUDA_ARCH__
+        return __reduce_min_sync(
+            0xffffffffu, lane.head_d2() == m ? lane.head_index() : s5::kNoIndex);
+#else
+        return m;
+#endif
+    }
+    S5_HD void drop(unsigned c) { lane.drop_if(lane.head_index() == c); }
+};
+
+// The five nearest candidates of one query, by one warp (csrc/select5.h):
 // sel[] in candidate-index order, -1 where fewer than five are set (the
 // same on every lane); returns the 5-NN gate.
 template <int kSlots, class Cand>
@@ -342,65 +397,25 @@ __device__ __forceinline__ bool select5(const Cand& cd, int n_cand,
         const int c = lane + 32 * j;
         d2[j] = CUDART_INF_F;
         float cx, cy, cz;
-        if (c < n_cand && cd.get(c, cx, cy, cz)) {
-            const float dx = cx - px, dy = cy - py, dz = cz - pz;
-            d2[j] = dx * dx + dy * dy + dz * dz;
-        }
+        if (c < n_cand && cd.get(c, cx, cy, cz))
+            d2[j] = s5::dist2(cx, cy, cz, px, py, pz);
     }
-    // five argmin rounds; (d^2, index) compared lexicographically is the
-    // reference's "min, then the first index among hits"
-    int n_sel = 0;
-    float d_k = CUDART_INF_F;
-#pragma unroll
-    for (int k = 0; k < kPlanePts; ++k) {
-        float bd = CUDART_INF_F;
-        int bc = 0x7fffffff;
-#pragma unroll
-        for (int j = 0; j < kSlots; ++j) {
-            const int c = lane + 32 * j;
-            if (d2[j] < bd || (d2[j] == bd && c < bc)) { bd = d2[j]; bc = c; }
-        }
-        {
-            // the warp's minimum distance, then the first index among the
-            // lanes that hold it: two hardware warp reductions (non-negative
-            // floats order like their bit patterns)
-            const unsigned mine = __float_as_uint(bd);
-            const unsigned m = __reduce_min_sync(0xffffffffu, mine);
-            bc = static_cast<int>(__reduce_min_sync(
-                0xffffffffu, mine == m ? static_cast<unsigned>(bc)
-                                       : 0x7fffffffu));
-            bd = __uint_as_float(m);
-        }
-        d_k = bd;
-        sel[k] = -1;
-        if (bd < CUDART_INF_F) {
-            sel[k] = bc;
-            ++n_sel;
-#pragma unroll
-            for (int j = 0; j < kSlots; ++j)
-                if (lane + 32 * j == bc) d2[j] = CUDART_INF_F;
-        }
-    }
-    // selected points in candidate-index order (the order a masked sum
-    // over the candidate axis visits them)
-#pragma unroll
-    for (int a = 1; a < kPlanePts; ++a)
-#pragma unroll
-        for (int b = a; b > 0; --b)
-            if (static_cast<unsigned>(sel[b]) < static_cast<unsigned>(sel[b - 1])) {
-                const int t = sel[b]; sel[b] = sel[b - 1]; sel[b - 1] = t;
-            }
-    return valid && d_k < kMaxSearchSq && n_sel >= kPlanePts;
+    WarpRounds<kSlots> w;
+    w.lane.init(d2, lane);
+    return s5::rounds(w, valid, kMaxSearchSq, sel);
 }
 
 // Each lane owns candidates lane, lane + 32, ...: 6 of them at the usual 192
-// candidates per query (8 voxels x 24), 8 at the most (kMaxCand).
+// candidates per query (8 voxels x 24), 7 at a table's 216 (27 cells x 8),
+// 8 at the most (kMaxCand).
 template <class Cand>
 __device__ __forceinline__ bool select5_any(const Cand& cd, int n_cand,
                                             bool valid, float px, float py,
                                             float pz, int lane, int* sel) {
     if (n_cand <= 6 * 32)
         return select5<6>(cd, n_cand, valid, px, py, pz, lane, sel);
+    if (n_cand <= 7 * 32)
+        return select5<7>(cd, n_cand, valid, px, py, pz, lane, sel);
     return select5<kCandPerLane>(cd, n_cand, valid, px, py, pz, lane, sel);
 }
 
@@ -597,6 +612,28 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
 // K3: the whole GN loop of one scan in one cooperative launch
 // ---------------------------------------------------------------------------
 
+// Where a K3 warp spends its time, for tools/k3_breakdown.py: built with
+// -DLOAM_K3_CLOCKS, every warp adds SM clock cycles per segment and lane 0
+// writes them into k3_clocks[warp of the grid][kK3ClockSlots] at the end,
+// with the queries it selected, its SM and its start and end on the global
+// timer. The normal build has none of it.
+constexpr int kK3ClockSlots = 18;
+enum K3Clock {
+    kClkPrologue, kClkWait, kClkSearch, kClkStage, kClkSelect, kClkTail,
+    kClkRow, kClkK2, kClkBlockSums, kClkBarrier, kClkPartials, kClkStep,
+    kClkEpilogue, kClkQueries, kClkSm, kClkT0, kClkT1, kClkIters
+};
+#ifdef LOAM_K3_CLOCKS
+__device__ long long* k3_clocks;
+#define K3_CLOCK_START(seg) long long k3c_##seg = clock64()
+#define K3_CLOCK_ADD(seg, slot) k3_acc[slot] += clock64() - k3c_##seg
+#define K3_CLOCK_COUNT(slot) ++k3_acc[slot]
+#else
+#define K3_CLOCK_START(seg)
+#define K3_CLOCK_ADD(seg, slot)
+#define K3_CLOCK_COUNT(slot)
+#endif
+
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
     const unsigned dst = static_cast<unsigned>(
         __cvta_generic_to_shared(smem_dst));
@@ -636,14 +673,16 @@ __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
 // Grid-wide barrier on a counter that only grows during a launch: every
 // block arrives once, then waits until `target` (blocks x barriers so far)
 // arrivals are in. All blocks must be co-resident (cooperative launch).
+// The block's writes before it are ordered by __syncthreads and thread 0's
+// release add (cumulative); another block's acquire load and
+// __syncthreads order its reads after: no full fence on either side.
 __device__ __forceinline__ void grid_barrier(unsigned* counter,
                                              unsigned target) {
     __syncthreads();
     if (threadIdx.x == 0) {
-        __threadfence();
-        atomicAdd(counter, 1u);
+        asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                     :: "l"(counter) : "memory");
         while (ld_acquire(counter) < target) {}
-        __threadfence();
     }
     __syncthreads();
 }
@@ -671,33 +710,43 @@ __device__ __forceinline__ void transform_point(const float* pose, float x,
 
 // K3's candidate sources. Each is the launch's parameters (plain pointers
 // and sizes, filled on the host) with load() reading the map's device
-// scalars into the source a K1 phase uses: stage() puts one query's
-// candidates into a buffer of kBufBytes (and kMetaInts ints) of shared
-// memory with cp.async, fit() runs the selection and the plane fit on them.
+// scalars into the source a K1 phase uses. prepare() runs once per launch
+// on every thread, locate() once per K1 phase on every thread (a table's
+// key searches, for all the block's queries at once); stage() puts query
+// j's candidates into a buffer of kBufBytes (and kMetaInts ints) of shared
+// memory with cp.async, on one warp; cand() reads them for the selection.
 //
 // The merged map: one int16 row per query (K1's source).
 struct MergedSrc {
     MapGeom g;
     int row_chunks;   // 16-byte chunks per row
-    __device__ __forceinline__ void stage(float px, float py, float pz,
+    __device__ __forceinline__ int32_t first_probe() const { return 0; }
+    __device__ __forceinline__ void prepare(int*, int32_t) const {}
+    __device__ __forceinline__ void locate(const float*, const float*,
+                                           const float*, const float*,
+                                           const uint8_t*, int, int*,
+                                           const int*) const {}
+    __device__ __forceinline__ void stage(int, float px, float py, float pz,
                                           unsigned char* buf, int*,
-                                          int lane) const {
+                                          const int*, int lane) const {
         const int4* src = reinterpret_cast<const int4*>(
             merged_row(g, true, px, py, pz));
         int4* dst = reinterpret_cast<int4*>(buf);
         for (int k = lane; k < row_chunks; k += 32) cp_async16(dst + k, src + k);
     }
-    __device__ __forceinline__ Plane fit(const unsigned char* buf, const int*,
-                                         float px, float py, float pz,
-                                         int lane) const {
-        return select_and_fit(reinterpret_cast<const int16_t*>(buf), g, true,
-                              px, py, pz, lane);
+    __device__ __forceinline__ QuantRow cand(const unsigned char* buf,
+                                             const int*) const {
+        return {reinterpret_cast<const int16_t*>(buf), g.scale, g.cx0, g.cy0,
+                g.cz0};
     }
+    __device__ __forceinline__ int n_cand() const { return g.n_cand; }
 };
 
 struct MergedParams {
     static constexpr int kBufBytes = kRowBufElems * 2;
     static constexpr int kMetaInts = 0;
+    static constexpr int kIndexInts = 0;
+    static constexpr int kCellInts = 0;
     const int16_t* rows;
     int n_cand;
     const float* scale;
@@ -717,38 +766,48 @@ struct DenseSrc {
     int m, gx, gy, gz;
     float cx0, cy0, cz0, grid;
     bool vec16;   // rows 16-byte aligned: copy in 16-byte chunks
-    __device__ __forceinline__ void stage(float px, float py, float pz,
+    __device__ __forceinline__ int32_t first_probe() const { return 0; }
+    __device__ __forceinline__ void prepare(int*, int32_t) const {}
+    __device__ __forceinline__ void locate(const float*, const float*,
+                                           const float*, const float*,
+                                           const uint8_t*, int, int*,
+                                           const int*) const {}
+    __device__ __forceinline__ void stage(int, float px, float py, float pz,
                                           unsigned char* buf, int*,
-                                          int lane) const {
+                                          const int*, int lane) const {
         const int bx = tg::corner_base(px, cx0, grid);
         const int by = tg::corner_base(py, cy0, grid);
         const int bz = tg::corner_base(pz, cz0, grid);
-        float* dst = reinterpret_cast<float*>(buf);
+        // four lanes a row: each lane finds its row once and copies every
+        // fourth unit of it
+        constexpr int kLanesPerRow = 32 / tg::kCornerCells;
+        const int k = lane / kLanesPerRow, sub = lane % kLanesPerRow;
         const int row_floats = 3 * m;
-        const int unit = vec16 ? 4 : 1;   // floats per copy
-        const int per_row = row_floats / unit;
-        for (int i = lane; i < tg::kCornerCells * per_row; i += 32) {
-            const int k = i / per_row;
-            const int64_t row = tg::corner_cell_row(bx, by, bz, k, gx, gy, gz,
-                                                    true);
-            const float* src = slab + row * row_floats
-                               + (i - k * per_row) * unit;
-            if (vec16) cp_async16(dst + unit * i, src);
-            else cp_async4(dst + i, src);
+        const float* src = slab
+            + tg::corner_cell_row(bx, by, bz, k, gx, gy, gz, true) * row_floats;
+        float* dst = reinterpret_cast<float*>(buf) + k * row_floats;
+        if (vec16) {
+            for (int c = sub; 4 * c < row_floats; c += kLanesPerRow)
+                cp_async16(dst + 4 * c, src + 4 * c);
+        } else {
+            for (int c = sub; c < row_floats; c += kLanesPerRow)
+                cp_async4(dst + c, src + c);
         }
     }
-    __device__ __forceinline__ Plane fit(const unsigned char* buf, const int*,
-                                         float px, float py, float pz,
-                                         int lane) const {
-        const StagedRows cd = {reinterpret_cast<const float*>(buf)};
-        return select_and_fit_any(cd, tg::kCornerCells * m, true, px, py, pz,
-                                  lane);
+    __device__ __forceinline__ StagedRows cand(const unsigned char* buf,
+                                               const int*) const {
+        return {reinterpret_cast<const float*>(buf)};
+    }
+    __device__ __forceinline__ int n_cand() const {
+        return tg::kCornerCells * m;
     }
 };
 
 struct DenseParams {
     static constexpr int kBufBytes = kF32BufBytes;
     static constexpr int kMetaInts = 0;
+    static constexpr int kIndexInts = 0;
+    static constexpr int kCellInts = 0;
     const float* slab;
     int m;
     const float* corner;
@@ -761,60 +820,123 @@ struct DenseParams {
 };
 
 // The sorted voxel table: the 27 cells around the query's voxel, x
-// outermost (voxel.gather_neighbors with radius 1), each found by a lower
-// bound in the key table; only a found cell's set points are copied.
+// outermost (voxel.gather_neighbors with radius 1). Once per launch the
+// block bounds the keys below the INVALID tail (every thread probes one key,
+// evenly spaced; the count below INVALID puts the tail's start within one
+// spacing) and copies every s-th key of the range before that into shared
+// memory (the sampled index of csrc/target_gather.h); once
+// per K1 phase its threads find the cells of all its valid queries, one
+// thread per z-run of three cells (nine searches a query, most levels in
+// shared memory), and keep each cell's row and count (row * 16 + count, 0
+// where not found). A warp's stage() then only copies, one lane per cell:
+// a found cell's set points, and its count.
 struct TableSrc {
+    // after the sampled index in shared memory: the keys it covers, the
+    // sampling stride and the samples
+    static constexpr int kRange = kIndexBudgetInts, kStride = kRange + 1,
+                         kSamples = kRange + 2;
     const int32_t* keys;
     const float* slab;
     const int32_t* counts;
     int n_keys, m;
     float ox, oy, oz, grid;
     bool vec16;
-    __device__ __forceinline__ void stage(float px, float py, float pz,
-                                          unsigned char* buf, int* cnt_out,
-                                          int lane) const {
-        const int cx = tg::voxel_coord(px, ox, grid);
-        const int cy = tg::voxel_coord(py, oy, grid);
-        const int cz = tg::voxel_coord(pz, oz, grid);
-        // lane k < 27 searches cell k
-        int idx = 0, cnt = 0;
-        if (lane < tg::kTableCells) {
-            bool found = false;
-            idx = tg::table_lookup(
-                keys, n_keys, tg::table_cell_key(cx, cy, cz, lane, true),
-                &found);
-            cnt = found ? min(__ldg(counts + idx), m) : 0;
-            cnt_out[lane] = cnt;
+    // this thread's probe of the keys (tg::valid_range_end), loaded before
+    // the prologue's other loads; INT32_MAX past the end
+    __device__ __forceinline__ int32_t first_probe() const {
+        const int pos = (threadIdx.x + 1) * tg::probe_step(n_keys, blockDim.x)
+                        - 1;
+        return pos < n_keys ? __ldg(keys + pos) : INT32_MAX;
+    }
+    __device__ __forceinline__ void prepare(int* s_index,
+                                            int32_t probe) const {
+        const int hi = tg::valid_range_end(
+            __syncthreads_count(probe < tg::kInvalidKey), n_keys, blockDim.x);
+        const int st = tg::index_stride(hi, tg::kIndexBudget);
+        const int n_s = (hi + st - 1) / st;
+        // all of a thread's loads first (kK3Threads * kSampleLoads >= the
+        // budget), then the stores
+        constexpr int kSampleLoads = kIndexBudgetInts / kK3Threads;
+        int v[kSampleLoads];
+#pragma unroll
+        for (int u = 0; u < kSampleLoads; ++u) {
+            const int i = threadIdx.x + u * kK3Threads;
+            v[u] = i < n_s ? __ldg(keys + static_cast<int64_t>(i) * st) : 0;
         }
-        float* dst = reinterpret_cast<float*>(buf);
-        const int row_floats = 3 * m;
-        for (int k = 0; k < tg::kTableCells; ++k) {
-            const int idx_k = __shfl_sync(0xffffffffu, idx, k);
-            const int cnt_k = __shfl_sync(0xffffffffu, cnt, k);
-            const float* src = slab + static_cast<int64_t>(idx_k) * row_floats;
-            float* d = dst + k * row_floats;
-            if (vec16) {
-                // the 16-byte chunks that hold the cell's cnt_k set points
-                if (lane < (3 * cnt_k + 3) / 4)
-                    cp_async16(d + 4 * lane, src + 4 * lane);
-            } else {
-                for (int w = lane; w < 3 * cnt_k; w += 32)
-                    cp_async4(d + w, src + w);
+#pragma unroll
+        for (int u = 0; u < kSampleLoads; ++u) {
+            const int i = threadIdx.x + u * kK3Threads;
+            if (i < n_s) s_index[i] = v[u];
+        }
+        if (threadIdx.x == 0) {
+            s_index[kRange] = hi;
+            s_index[kStride] = st;
+            s_index[kSamples] = n_s;
+        }
+    }
+    __device__ __forceinline__ void locate(const float* pose, const float* x,
+                                           const float* y, const float* z,
+                                           const uint8_t* valid, int n_local,
+                                           int* cells,
+                                           const int* s_index) const {
+        const tg::KeyIndex ix = {keys, s_index, s_index[kRange],
+                                 s_index[kStride], s_index[kSamples]};
+        constexpr int kRuns = tg::kTableCells / 3;
+        for (int i = threadIdx.x; i < n_local * kRuns; i += blockDim.x) {
+            const int j = i / kRuns, r = i - j * kRuns;
+            if (!valid[j]) continue;
+            float p[3];
+            transform_point(pose, x[j], y[j], z[j], p);
+            int idx[3];
+            bool found[3];
+            // an INVALID cell is never found, and its row is never read:
+            // the end of the sampled range stands in for its bound
+            tg::table_run_lookup(ix, n_keys, ix.n,
+                                 tg::voxel_coord(p[0], ox, grid),
+                                 tg::voxel_coord(p[1], oy, grid),
+                                 tg::voxel_coord(p[2], oz, grid), r, true,
+                                 idx, found);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                const int cnt = found[c] ? min(__ldg(counts + idx[c]), m) : 0;
+                cells[j * tg::kTableCells + 3 * r + c] =
+                    cnt > 0 ? idx[c] * 16 + cnt : 0;
             }
         }
     }
-    __device__ __forceinline__ Plane fit(const unsigned char* buf,
-                                         const int* cnt, float px, float py,
-                                         float pz, int lane) const {
-        const StagedCells cd = {reinterpret_cast<const float*>(buf), cnt, m};
-        return select_and_fit_any(cd, tg::kTableCells * m, true, px, py, pz,
-                                  lane);
+    __device__ __forceinline__ void stage(int j, float, float, float,
+                                          unsigned char* buf, int* cnt_out,
+                                          const int* cells, int lane) const {
+        if (lane >= tg::kTableCells) return;
+        const int v = cells[j * tg::kTableCells + lane];
+        const int cnt = v & 15;
+        cnt_out[lane] = cnt;
+        const int row_floats = 3 * m;
+        const float* src = slab + static_cast<int64_t>(v >> 4) * row_floats;
+        float* dst = reinterpret_cast<float*>(buf) + lane * row_floats;
+        if (vec16) {
+            // the 16-byte chunks that hold the cell's cnt set points
+            for (int c = 0; 4 * c < 3 * cnt; ++c)
+                cp_async16(dst + 4 * c, src + 4 * c);
+        } else {
+            for (int w = 0; w < 3 * cnt; ++w) cp_async4(dst + w, src + w);
+        }
+    }
+    __device__ __forceinline__ StagedCells cand(const unsigned char* buf,
+                                                const int* cnt) const {
+        return {reinterpret_cast<const float*>(buf), cnt, m,
+                (65536 + m - 1) / m};
+    }
+    __device__ __forceinline__ int n_cand() const {
+        return tg::kTableCells * m;
     }
 };
 
 struct TableParams {
     static constexpr int kBufBytes = kF32BufBytes;
     static constexpr int kMetaInts = kCellMeta;
+    static constexpr int kIndexInts = TableSrc::kSamples + 1;
+    static constexpr int kCellInts = tg::kTableCells;
     const int32_t* keys;
     int n_keys;
     const float* slab;
@@ -830,16 +952,100 @@ struct TableParams {
 };
 
 // Dynamic shared memory of K3: the warps' double candidate buffers (and
-// their cell counts), the staged partials of all blocks, then the block's
-// per-query state.
-__host__ __device__ inline size_t gn_loop_smem_bytes(int n_q, int grid,
-                                                     int buf_bytes,
-                                                     int meta_ints) {
+// their cell counts), the table's sampled index and the cells of the
+// block's queries, the staged row sums of the block's threads, then the
+// block's per-query state: source point, sqrt(r), plane (6 floats), the
+// selected points' record (15 floats), ok and validity.
+__host__ __device__ inline size_t gn_loop_smem_bytes(
+        int n_q, int grid, int buf_bytes, int meta_ints, int index_ints,
+        int cell_ints) {
     const size_t n_local = static_cast<size_t>((n_q + grid - 1) / grid);
+    const size_t n_thr = n_local < kK3Threads ? n_local : kK3Threads;
     return static_cast<size_t>(kK3Warps) * 2 * buf_bytes
-         + sizeof(int) * kK3Warps * 2 * meta_ints
-         + sizeof(float) * grid * kPartStride
-         + sizeof(float) * kQueryFloats * n_local + 2 * n_local;
+         + sizeof(int) * (kK3Warps * 2 * meta_ints + index_ints
+                          + cell_ints * n_local)
+         + sizeof(float) * (kNSums * n_thr + kQueryFloats * n_local)
+         + 2 * n_local;
+}
+
+// Fixed-order tree sum over the warp in double; lane 0 holds the result.
+__device__ __forceinline__ double warp_sum_d(double x) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        x += __shfl_down_sync(0xffffffffu, x, off);
+    return x;
+}
+
+// The block's 28 sums over its threads t < n_thr, in a fixed order and in
+// double, and the block's partial written for the grid: thread t stores its
+// acc[] in s_red[k][t]; warp w adds sums k = w, w + W, ...: lane l the
+// threads l, l + 32, ... one after another, then the warp's fixed tree.
+// Slot kNSums of the partial is the block's largest valid range. Every
+// thread calls it.
+__device__ __forceinline__ void k3_block_partial(const float* acc,
+                                                 float* s_red, int n_thr,
+                                                 float block_rmax,
+                                                 double* part) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (static_cast<int>(threadIdx.x) < n_thr) {
+#pragma unroll
+        for (int k = 0; k < kNSums; ++k) s_red[k * n_thr + threadIdx.x] = acc[k];
+    }
+    __syncthreads();
+    const int nb = gridDim.x;
+    for (int k = warp; k <= kNSums; k += kK3Warps) {
+        double t = 0.0;
+        if (k < kNSums) {
+            for (int i = lane; i < n_thr; i += 32) t += s_red[k * n_thr + i];
+            t = warp_sum_d(t);
+        } else {
+            t = block_rmax;
+        }
+        if (lane == 0) part[k * nb + blockIdx.x] = t;
+    }
+}
+
+// The grid's sums of all blocks' partials (sum k of block b at k * G + b),
+// in a fixed order and in double, rounded to float once: warp w takes sums
+// w and w + W (slot kNSums is the largest range): lane l the blocks l,
+// l + 32, ... one after another (all loads of both sums first), then the
+// warp's fixed tree. Lane 0 writes s_sum[k].
+__device__ __forceinline__ void k3_grid_sums(const double* part,
+                                             float* s_sum) {
+    static_assert(2 * kK3Warps > kNSums, "two sums a warp");
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int nb = gridDim.x;
+    constexpr int kLoads = 5;   // 160 blocks a pass
+    const int k1 = warp + kK3Warps;
+    const bool two = k1 <= kNSums;
+    double t0 = 0.0, t1 = 0.0;
+    for (int b0 = lane; b0 < nb; b0 += 32 * kLoads) {
+        double v0[kLoads], v1[kLoads];
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+            const int b = b0 + 32 * u;
+            v0[u] = b < nb ? __ldcg(part + warp * nb + b) : 0.0;
+            v1[u] = two && b < nb ? __ldcg(part + k1 * nb + b) : 0.0;
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+            if (b0 + 32 * u >= nb) break;
+            t0 += v0[u];
+            t1 = k1 < kNSums ? t1 + v1[u] : fmax(t1, v1[u]);
+        }
+    }
+    t0 = warp_sum_d(t0);
+    if (k1 < kNSums) {
+        t1 = warp_sum_d(t1);
+    } else {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            t1 = fmax(t1, __shfl_down_sync(0xffffffffu, t1, off));
+    }
+    if (lane == 0) {
+        s_sum[warp] = static_cast<float>(t0);
+        if (two) s_sum[k1] = static_cast<float>(t1);
+    }
 }
 
 template <class Params>
@@ -853,7 +1059,6 @@ gn_loop_kernel(
     constexpr int kBufBytes = Params::kBufBytes;
     constexpr int kMetaInts = Params::kMetaInts;
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    __shared__ float s_acc[kK3Warps][kNSums];
     __shared__ float s_sum[kPartStride];
     __shared__ float s_pose[12], s_anchor[12];
     __shared__ float s_wmax[kK3Warps];
@@ -862,26 +1067,38 @@ gn_loop_kernel(
 
     const int n_blocks = gridDim.x;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+#ifdef LOAM_K3_CLOCKS
+    long long k3_acc[kK3ClockSlots] = {0};
+    unsigned long long k3_t0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k3_t0));
+#endif
+    K3_CLOCK_START(prologue);
     const int n_local_max = (n_q + n_blocks - 1) / n_blocks;
+    const int n_thr = n_local_max < kK3Threads ? n_local_max : kK3Threads;
     const int first = blockIdx.x;   // queries first, first + G, ...
     const int n_local = first < n_q
         ? (n_q - first + n_blocks - 1) / n_blocks : 0;
 
     unsigned char* s_bufs = smem_raw;
     int* s_meta = reinterpret_cast<int*>(s_bufs + kK3Warps * 2 * kBufBytes);
-    float* s_all = reinterpret_cast<float*>(s_meta + kK3Warps * 2 * kMetaInts);
-    float* s_x = s_all + n_blocks * kPartStride;
+    int* s_index = s_meta + kK3Warps * 2 * kMetaInts;
+    int* s_cells = s_index + Params::kIndexInts;
+    float* s_red = reinterpret_cast<float*>(
+        s_cells + Params::kCellInts * n_local_max);
+    float* s_x = s_red + kNSums * n_thr;
     float* s_y = s_x + n_local_max;
     float* s_z = s_y + n_local_max;
     float* s_sqrt_r = s_z + n_local_max;
     float* s_plane = s_sqrt_r + n_local_max;     // 6 floats per query
-    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_plane + 6 * n_local_max);
+    float* s_rec = s_plane + 6 * n_local_max;    // kRecFloats per query
+    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_rec + kRecFloats * n_local_max);
     uint8_t* s_valid = s_ok + n_local_max;
 
     const auto src = prm.load();
+    const int32_t probe = src.first_probe();
 
     // prologue: the block's queries, sqrt(max(|p|, 1e-6)) and the block's
-    // largest valid range; the start pose
+    // largest valid range; the start pose; the source's own set-up
     float my_rmax = 0.0f;
     for (int j = tid; j < n_local; j += kK3Threads) {
         const int qi = first + j * n_blocks;
@@ -904,9 +1121,11 @@ gn_loop_kernel(
         s_pose[tid] = init_pose[src_i];
         s_anchor[tid] = init_pose[src_i];
     }
+    src.prepare(s_index, probe);
     __syncthreads();
     float block_rmax = 0.0f;
     for (int w = 0; w < kK3Warps; ++w) block_rmax = fmaxf(block_rmax, s_wmax[w]);
+    K3_CLOCK_ADD(prologue, kClkPrologue);
 
     int iters = 0, gathers = 0;
     bool refit = true;
@@ -914,15 +1133,22 @@ gn_loop_kernel(
         float pose[12];
 #pragma unroll
         for (int i = 0; i < 12; ++i) pose[i] = s_pose[i];
-        float acc[kNSums];
-#pragma unroll
-        for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
 
         if (refit) {
-            // K1 phase: warp `warp` takes the block's valid queries warp,
-            // warp + W, ...; the next one's candidates are on their way
-            // (cp.async) while this one's selection runs
+            // K1 phase: the table's searches for all the block's queries;
+            // then warp `warp` takes the block's valid queries warp,
+            // warp + W, ...: the next one's candidates are on their way
+            // (cp.async) while this one's selection runs, which leaves the
+            // query's gate and five points in its record
             ++gathers;
+            K3_CLOCK_START(search);
+            if constexpr (Params::kCellInts > 0) {
+                src.locate(pose, s_x, s_y, s_z, s_valid, n_local, s_cells,
+                           s_index);
+                __syncthreads();
+            }
+            K3_CLOCK_ADD(search, kClkSearch);
+            K3_CLOCK_START(stage0);
             unsigned char* bufs = s_bufs + warp * 2 * kBufBytes;
             int* metas = s_meta + warp * 2 * kMetaInts;
             int j = warp;
@@ -931,80 +1157,105 @@ gn_loop_kernel(
             float p[3];
             if (j < n_local) {
                 transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                src.stage(p[0], p[1], p[2], bufs, metas, lane);
+                src.stage(j, p[0], p[1], p[2], bufs, metas, s_cells, lane);
             }
             cp_async_commit();
+            K3_CLOCK_ADD(stage0, kClkStage);
             while (j < n_local) {
+                K3_CLOCK_START(stage);
                 int jn = j + kK3Warps;
                 while (jn < n_local && !s_valid[jn]) jn += kK3Warps;
                 if (jn < n_local) {
                     float pn[3];
                     transform_point(pose, s_x[jn], s_y[jn], s_z[jn], pn);
-                    src.stage(pn[0], pn[1], pn[2],
+                    src.stage(jn, pn[0], pn[1], pn[2],
                               bufs + (stage ^ 1) * kBufBytes,
-                              metas + (stage ^ 1) * kMetaInts, lane);
+                              metas + (stage ^ 1) * kMetaInts, s_cells, lane);
                 }
                 cp_async_commit();   // an empty group after the last query
+                K3_CLOCK_ADD(stage, kClkStage);
+                K3_CLOCK_START(wait);
                 cp_async_wait_but_one();
                 __syncwarp();
+                K3_CLOCK_ADD(wait, kClkWait);
+                K3_CLOCK_START(select);
                 transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                const Plane pl = src.fit(bufs + stage * kBufBytes,
-                                         metas + stage * kMetaInts, p[0],
-                                         p[1], p[2], lane);
-                if (lane == 0) {
-                    float* dst = s_plane + 6 * j;
-                    dst[0] = pl.cx; dst[1] = pl.cy; dst[2] = pl.cz;
-                    dst[3] = pl.nx; dst[4] = pl.ny; dst[5] = pl.nz;
-                    s_ok[j] = pl.ok ? 1 : 0;
-                    accumulate_row(pl, p[0], p[1], p[2], s_sqrt_r[j], acc);
+                const auto cd = src.cand(bufs + stage * kBufBytes,
+                                         metas + stage * kMetaInts);
+                int sel[kPlanePts];
+                const bool gate = select5_any(cd, src.n_cand(), true, p[0],
+                                              p[1], p[2], lane, sel);
+                if (gate && lane < kPlanePts) {
+                    // lane k keeps point k (all five exist where the gate
+                    // passed): x, y, z at k, 5 + k, 10 + k of the record
+                    const int sk = lane == 0 ? sel[0] : lane == 1 ? sel[1]
+                                 : lane == 2 ? sel[2] : lane == 3 ? sel[3]
+                                 : sel[4];
+                    float* r = s_rec + kRecFloats * j;
+                    cd.get(sk, r[lane], r[kPlanePts + lane],
+                           r[2 * kPlanePts + lane]);
                 }
+                if (lane == 0) s_ok[j] = gate ? 1 : 0;
                 __syncwarp();   // the buffer is free for the load after next
+                K3_CLOCK_ADD(select, kClkSelect);
+                K3_CLOCK_COUNT(kClkQueries);
                 j = jn;
                 stage ^= 1;
             }
-        } else {
-            // K2 phase: one thread per query against the kept planes
-            for (int j = tid; j < n_local; j += kK3Threads) {
-                if (!s_ok[j]) continue;
-                const float* src_pl = s_plane + 6 * j;
-                Plane pl;
-                pl.cx = src_pl[0]; pl.cy = src_pl[1]; pl.cz = src_pl[2];
-                pl.nx = src_pl[3]; pl.ny = src_pl[4]; pl.nz = src_pl[5];
+        }
+
+        // the rows: thread t takes the block's queries t, t + T, ...; in a
+        // K1 phase it first fits the plane of each record (the scalar tail,
+        // one query a thread), in a K2 phase it reads the kept plane
+        K3_CLOCK_START(rows);
+        __syncthreads();
+        float acc[kNSums];
+#pragma unroll
+        for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
+        for (int j = tid; j < n_local; j += kK3Threads) {
+            if (!s_ok[j]) continue;
+            float* pl_j = s_plane + 6 * j;
+            Plane pl;
+            if (refit) {
+                const float* r = s_rec + kRecFloats * j;
+                pl = fit_plane5(r, r + kPlanePts, r + 2 * kPlanePts, 0x1fu,
+                                true);
+                pl_j[0] = pl.cx; pl_j[1] = pl.cy; pl_j[2] = pl.cz;
+                pl_j[3] = pl.nx; pl_j[4] = pl.ny; pl_j[5] = pl.nz;
+                s_ok[j] = pl.ok ? 1 : 0;
+            } else {
+                pl.cx = pl_j[0]; pl.cy = pl_j[1]; pl.cz = pl_j[2];
+                pl.nx = pl_j[3]; pl.ny = pl_j[4]; pl.nz = pl_j[5];
                 pl.ok = true;
-                float p[3];
-                transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                accumulate_row(pl, p[0], p[1], p[2], s_sqrt_r[j], acc);
             }
+            float p[3];
+            transform_point(pose, s_x[j], s_y[j], s_z[j], p);
+            accumulate_row(pl, p[0], p[1], p[2], s_sqrt_r[j], acc);
+        }
+        if (refit) {
+            K3_CLOCK_ADD(rows, kClkTail);
+        } else {
+            K3_CLOCK_ADD(rows, kClkK2);
         }
 
         // publish this block's partial sums, meet the other blocks, then
-        // add all partials in block order: every block gets the same sums
-        float* mine = partials
-            + (static_cast<size_t>(iters & 1) * n_blocks + blockIdx.x)
-              * kPartStride;
-        const float t = block_sums<kK3Warps>(acc, s_acc);
-        if (tid < kNSums) mine[tid] = t;
-        if (tid == kNSums) mine[kNSums] = block_rmax;
+        // add all partials in a fixed order: every block gets the same sums
+        K3_CLOCK_START(bsums);
+        double* part = reinterpret_cast<double*>(partials)
+            + static_cast<size_t>(iters & 1) * kPartStride * n_blocks;
+        k3_block_partial(acc, s_red, n_thr, block_rmax, part);
+        K3_CLOCK_ADD(bsums, kClkBlockSums);
+        K3_CLOCK_START(barrier);
         grid_barrier(&counters[0],
                      static_cast<unsigned>(n_blocks) * (iters + 1));
-        const float* all = partials
-            + static_cast<size_t>(iters & 1) * n_blocks * kPartStride;
-        for (int i = tid; i < n_blocks * kPartStride; i += kK3Threads)
-            s_all[i] = __ldcg(all + i);
+        K3_CLOCK_ADD(barrier, kClkBarrier);
+        K3_CLOCK_START(gsums);
+        k3_grid_sums(part, s_sum);
         __syncthreads();
-        if (tid < kNSums) {
-            float s = 0.0f;
-            for (int b = 0; b < n_blocks; ++b) s += s_all[b * kPartStride + tid];
-            s_sum[tid] = s;
-        } else if (tid == kNSums) {
-            float m = 0.0f;
-            for (int b = 0; b < n_blocks; ++b)
-                m = fmaxf(m, s_all[b * kPartStride + kNSums]);
-            s_sum[kNSums] = m;
-        }
-        __syncthreads();
+        K3_CLOCK_ADD(gsums, kClkPartials);
 
         // the small step, taken by every block on the same numbers
+        K3_CLOCK_START(step);
         if (tid == 0) {
             // constant indices throughout, so these arrays are registers
             float jtj[36], jte[6], dx[6], next[12];
@@ -1039,6 +1290,7 @@ gn_loop_kernel(
             s_ctl[3] = n_valid;
         }
         __syncthreads();
+        K3_CLOCK_ADD(step, kClkStep);
         ++iters;
         refit = s_ctl[1] != 0;
         if (s_ctl[0]) break;
@@ -1046,6 +1298,7 @@ gn_loop_kernel(
 
     // epilogue: one result row [pose (4x4), converged, iters, gathers,
     // n_valid of the last linearization]
+    K3_CLOCK_START(epilogue);
     if (blockIdx.x == 0 && tid == 0) {
         float Rn[9];
         gn::reorthonormalize(s_pose, Rn);
@@ -1061,6 +1314,23 @@ gn_loop_kernel(
         out[19] = static_cast<float>(s_ctl[3]);
     }
     grid_barrier_release(counters);
+#ifdef LOAM_K3_CLOCKS
+    K3_CLOCK_ADD(epilogue, kClkEpilogue);
+    if (lane == 0) {
+        unsigned long long t1;
+        unsigned smid;
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+        long long* o = k3_clocks
+            + (static_cast<long long>(blockIdx.x) * kK3Warps + warp)
+              * kK3ClockSlots;
+        for (int k = 0; k < kClkSm; ++k) o[k] = k3_acc[k];
+        o[kClkSm] = static_cast<long long>(smid);
+        o[kClkT0] = static_cast<long long>(k3_t0);
+        o[kClkT1] = static_cast<long long>(t1);
+        o[kClkIters] = iters;
+    }
+#endif
 }
 
 // `n` grid barriers and nothing else, on K3's grid: the barrier's cost.
@@ -1517,20 +1787,30 @@ int loam_plane_normal_equations(
 
 // Blocks of K3's cooperative grid on the current device (0 on an error);
 // its workspace is 2 x blocks x loam_gn_loop_partial_stride() floats of
-// partials plus two zeroed 32-bit counters.
+// partials (kPartStride doubles a block) plus two zeroed 32-bit counters.
 int loam_gn_loop_grid() { return gn_loop_grid_cached(); }
 
-int loam_gn_loop_partial_stride() { return kPartStride; }
+int loam_gn_loop_partial_stride() { return 2 * kPartStride; }
 
 // Dynamic shared memory K3 needs for n_q queries on a target of `kind`
 // (0 merged map, 1 dense map, 2 sorted table), in bytes.
 long long loam_gn_loop_smem(int n_q, int kind) {
     const int grid = gn_loop_grid_cached();
     if (grid <= 0) return -1;
-    int buf = MergedParams::kBufBytes, meta = MergedParams::kMetaInts;
-    if (kind == 1) { buf = DenseParams::kBufBytes; meta = DenseParams::kMetaInts; }
-    if (kind == 2) { buf = TableParams::kBufBytes; meta = TableParams::kMetaInts; }
-    return static_cast<long long>(gn_loop_smem_bytes(n_q, grid, buf, meta));
+    size_t bytes = gn_loop_smem_bytes(
+        n_q, grid, MergedParams::kBufBytes, MergedParams::kMetaInts,
+        MergedParams::kIndexInts, MergedParams::kCellInts);
+    if (kind == 1)
+        bytes = gn_loop_smem_bytes(n_q, grid, DenseParams::kBufBytes,
+                                   DenseParams::kMetaInts,
+                                   DenseParams::kIndexInts,
+                                   DenseParams::kCellInts);
+    if (kind == 2)
+        bytes = gn_loop_smem_bytes(n_q, grid, TableParams::kBufBytes,
+                                   TableParams::kMetaInts,
+                                   TableParams::kIndexInts,
+                                   TableParams::kCellInts);
+    return static_cast<long long>(bytes);
 }
 
 }  // extern "C"
@@ -1547,7 +1827,8 @@ int launch_gn_loop(Params prm, const void* src_xyz, const void* mask,
     int n_blocks = gn_loop_grid_cached();
     if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
     size_t smem = gn_loop_smem_bytes(n_q, n_blocks, Params::kBufBytes,
-                                     Params::kMetaInts);
+                                     Params::kMetaInts, Params::kIndexInts,
+                                     Params::kCellInts);
     if (smem > 48 * 1024) {   // above the default limit only on request
         cudaError_t err = cudaFuncSetAttribute(
             gn_loop_kernel<Params>,
@@ -1610,14 +1891,16 @@ int loam_gn_loop_dense(
 }
 
 // K3 on a sorted voxel table: keys (n_keys,) int32 ascending, slab
-// (n_keys, m, 3) f32, counts (n_keys,) int32; n_keys >= 1, 27 m <= 256.
+// (n_keys, m, 3) f32, counts (n_keys,) int32; 1 <= n_keys < 2^27 (a cell
+// keeps row * 16 + count), 27 m <= 256.
 int loam_gn_loop_table(
         const void* keys, int n_keys, const void* slab, const void* counts,
         int m, const void* origin, const void* grid_size,
         const void* src_xyz, const void* mask, int n_q, const void* init_pose,
         int max_iters, float degen_per_row, void* partials, void* counters,
         void* out, void* stream) {
-    if (n_keys < 1 || m < 1 || tg::kTableCells * m > kMaxCand)
+    if (n_keys < 1 || n_keys >= (1 << 27) || m < 1
+            || tg::kTableCells * m > kMaxCand)
         return static_cast<int>(cudaErrorInvalidValue);
     const int vec16 = reinterpret_cast<uintptr_t>(slab) % 16 == 0
                       && (12 * m) % 16 == 0;
@@ -1629,6 +1912,15 @@ int loam_gn_loop_table(
     return launch_gn_loop(prm, src_xyz, mask, n_q, init_pose, max_iters,
                           degen_per_row, partials, counters, out, stream);
 }
+
+#ifdef LOAM_K3_CLOCKS
+// Where K3's clock build writes: loam_gn_loop_grid() x kK3Warps x
+// kK3ClockSlots int64 (see k3_clocks).
+int loam_k3_set_clocks(void* buf) {
+    long long* p = static_cast<long long*>(buf);
+    return static_cast<int>(cudaMemcpyToSymbol(k3_clocks, &p, sizeof(p)));
+}
+#endif
 
 #ifdef LOAM_K4_CLOCKS
 // Where K4's clock build writes: k4_blocks x kK4Warps x kK4ClockSlots

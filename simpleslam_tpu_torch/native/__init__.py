@@ -352,6 +352,8 @@ def ekf_replay_chunk(x: np.ndarray, P: np.ndarray, flags: np.ndarray,
 GN_SRC = os.path.join(_PKG, "csrc", "gn_step_host.cpp")
 GN_HEADER = os.path.join(_PKG, "csrc", "gn_step.h")
 TG_SRC = os.path.join(_PKG, "csrc", "target_gather_host.cpp")
+S5_SRC = os.path.join(_PKG, "csrc", "select5_host.cpp")
+S5_HEADER = os.path.join(_PKG, "csrc", "select5.h")
 TG_HEADER = os.path.join(_PKG, "csrc", "target_gather.h")
 _kernel_libs: dict = {}
 
@@ -397,9 +399,17 @@ def _bind_tg(lib: ctypes.CDLL) -> None:
     lib.tg_corner_rows.argtypes = [f32p, u8p, ci, f32p, ctypes.c_float, ci,
                                    ci, ci, ctypes.POINTER(ctypes.c_int64)]
     lib.tg_table_rows.restype = None
-    lib.tg_table_rows.argtypes = [f32p, u8p, ci, f32p, ctypes.c_float,
-                                  ctypes.POINTER(ctypes.c_int32), ci,
-                                  ctypes.POINTER(ctypes.c_int32), u8p]
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.tg_table_rows.argtypes = [f32p, u8p, ci, f32p, ctypes.c_float, i32p,
+                                  ci, ci, i32p, u8p, i32p]
+
+
+def _bind_s5(lib: ctypes.CDLL) -> None:
+    f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+    lib.select5_host.restype = ctypes.c_int
+    lib.select5_host.argtypes = [f32p, u8p, f32p, u8p, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_float,
+                                 ctypes.POINTER(ctypes.c_int32), u8p]
 
 
 def _gn_load() -> ctypes.CDLL:
@@ -473,10 +483,12 @@ def corner_rows(q: np.ndarray, mask: np.ndarray, corner: np.ndarray,
 
 
 def table_rows(q: np.ndarray, mask: np.ndarray, origin: np.ndarray,
-               grid: float, keys: np.ndarray):
+               grid: float, keys: np.ndarray, stride: int = 0):
     """Rows and found flags of the 27 cells of each query, as the kernel
     ``loam_gn_loop`` finds them in a sorted voxel table (``csrc/
-    target_gather.h``): ((Q, 27) int32, (Q, 27) bool)."""
+    target_gather.h``: nine run searches through every ``stride``-th key,
+    the kernel's stride where 0): ((Q, 27) int32, (Q, 27) bool, the stride
+    used)."""
     lib = _tg_load()
     q, mask = _f32c(q).reshape(-1, 3), _u8(mask)
     keys = np.ascontiguousarray(keys, dtype=np.int32)
@@ -484,9 +496,38 @@ def table_rows(q: np.ndarray, mask: np.ndarray, origin: np.ndarray,
         raise ValueError("table_rows: the table has no row")
     idx = np.empty((len(q), 27), np.int32)
     found = np.empty((len(q), 27), np.uint8)
+    used = np.zeros(1, np.int32)
     i32p, u8p = ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_uint8)
     lib.tg_table_rows(_fp(q), mask.ctypes.data_as(u8p), len(q),
                       _fp(_f32c(origin)), ctypes.c_float(grid),
-                      keys.ctypes.data_as(i32p), len(keys),
-                      idx.ctypes.data_as(i32p), found.ctypes.data_as(u8p))
-    return idx, found.astype(bool)
+                      keys.ctypes.data_as(i32p), len(keys), int(stride),
+                      idx.ctypes.data_as(i32p), found.ctypes.data_as(u8p),
+                      used.ctypes.data_as(i32p))
+    return idx, found.astype(bool), int(used[0])
+
+
+def select5(cand: np.ndarray, ok: np.ndarray, p: np.ndarray,
+            valid: np.ndarray, max_sq: float = 1.0):
+    """The five nearest candidates of each query as the CUDA kernels select
+    them on one warp (``csrc/select5.h``, 32 lanes emulated): cand (Q, C, 3)
+    f32 with flags ok (Q, C), queries p (Q, 3), validity (Q,). Returns
+    ((Q, 5) int32 candidate indices in index order, -1 where fewer than five
+    are set; (Q,) bool gate: valid, five found, the fifth within
+    ``max_sq``)."""
+    lib = _kernel_host_lib("select5", S5_SRC, S5_HEADER, _bind_s5)
+    cand = _f32c(cand)
+    n_q, n_cand = cand.shape[:2]
+    ok, valid = _u8(ok).reshape(n_q, n_cand), _u8(valid).reshape(n_q)
+    p = _f32c(p).reshape(n_q, 3)
+    sel = np.empty((n_q, 5), np.int32)
+    gate = np.empty(n_q, np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    err = lib.select5_host(_fp(cand), ok.ctypes.data_as(u8p), _fp(p),
+                           valid.ctypes.data_as(u8p), n_q, n_cand,
+                           ctypes.c_float(max_sq),
+                           sel.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                           gate.ctypes.data_as(u8p))
+    if err:
+        raise ValueError(f"select5: {n_cand} candidates per query: a warp "
+                         "takes 1 to 256")
+    return sel, gate.astype(bool)

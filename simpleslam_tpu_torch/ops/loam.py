@@ -95,10 +95,12 @@ def source_sqrt_range(src: PointCloud) -> torch.Tensor:
     return torch.sqrt(torch.clamp(torch.linalg.norm(src.xyz, dim=-1), min=1e-6))
 
 
-def fit_planes_at(p_map: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
-                  cand_ok: torch.Tensor) -> Planes:
-    """5-NN selection + plane fit of queries ``p_map`` (map frame) against
-    their candidates (Q, C, 3) / (Q, C)."""
+def select_nearest(p_map: torch.Tensor, mask: torch.Tensor,
+                   cand: torch.Tensor, cand_ok: torch.Tensor):
+    """The 5-NN argmin rounds of queries ``p_map`` (map frame) against their
+    candidates (Q, C, 3) / (Q, C): (the chosen candidate indices (Q, 5) in
+    index order, C where fewer than five are set; the gate (Q,): valid, five
+    found and the fifth within the search radius)."""
     diff = cand - p_map[:, None, :]
     d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
         + diff[..., 2] * diff[..., 2]
@@ -120,8 +122,18 @@ def fit_planes_at(p_map: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
     # order of a masked sum over the candidate axis (the reference's einsum)
     # and of the CUDA kernel, so all three round alike
     sel = torch.sort(torch.stack(sel, dim=1), dim=1).values    # (Q, 5)
+    gate = mask & (d_k < MAX_SEARCH_SQ) & (
+        torch.sum(sel < n_c, dim=1) >= PLANE_PTS)
+    return sel, gate
+
+
+def fit_planes_at(p_map: torch.Tensor, mask: torch.Tensor, cand: torch.Tensor,
+                  cand_ok: torch.Tensor) -> Planes:
+    """5-NN selection + plane fit of queries ``p_map`` (map frame) against
+    their candidates (Q, C, 3) / (Q, C)."""
+    sel, gate = select_nearest(p_map, mask, cand, cand_ok)
+    n_c = cand.shape[1]
     has = sel < n_c
-    gate = mask & (d_k < MAX_SEARCH_SQ) & (torch.sum(has, dim=1) >= PLANE_PTS)
     pts = torch.gather(cand, 1, torch.clamp(sel, max=n_c - 1)[..., None]
                        .expand(-1, -1, 3))
     pts = torch.where(has[..., None], pts, torch.zeros_like(pts))

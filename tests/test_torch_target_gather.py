@@ -121,8 +121,8 @@ def test_table_rows_match_both_gathers(case):
     the lower bound, the clamp to the last row, the INVALID key."""
     name, q, mask, (_, jtable, _, ttable) = case
     keys = ttable.keys.numpy()
-    idx, found = native.table_rows(q, mask, ttable.origin.numpy(),
-                                   float(ttable.grid), keys)
+    idx, found, _ = native.table_rows(q, mask, ttable.origin.numpy(),
+                                      float(ttable.grid), keys)
     assert idx.shape == found.shape == (len(q), 27)
     assert idx.min() >= 0 and idx.max() < len(keys)
     assert not found[~mask].any()
@@ -157,7 +157,7 @@ def test_table_search_clamps_and_refuses_invalid():
     origin = np.zeros(3, np.float32)
     # voxel (x, y, z) of a point is floor(p) + 512 at grid 1
     q = np.array([[-512.0, -512.0, -510.0]], np.float32)   # key 0..27 range
-    idx, found = native.table_rows(q, np.ones(1, bool), origin, 1.0, keys)
+    idx, found, _ = native.table_rows(q, np.ones(1, bool), origin, 1.0, keys)
     want_idx, want_found = tvox.lookup_voxels(
         torch.tensor(keys),
         tvox.pack_coords(tvox.voxel_coords(torch.tensor(q), torch.zeros(3),
@@ -168,8 +168,114 @@ def test_table_search_clamps_and_refuses_invalid():
     np.testing.assert_array_equal(found, want_found.numpy())
     assert found.any() and not found.all()
     far = np.array([[600.0, 600.0, 600.0]], np.float32)   # out of range
-    idx, found = native.table_rows(far, np.ones(1, bool), origin, 1.0, keys)
+    idx, found, _ = native.table_rows(far, np.ones(1, bool), origin, 1.0,
+                                      keys)
     assert (idx == len(keys) - 1).all() and not found.any()
     with pytest.raises(ValueError, match="no row"):
         native.table_rows(q, np.ones(1, bool), origin, 1.0,
                           np.zeros(0, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# the sampled key index and the one-search-per-z-run lookup
+# ---------------------------------------------------------------------------
+
+INDEX_BUDGET = 4096   # tg::kIndexBudget: sampled keys the kernel keeps
+
+
+def _table_keys(n: int, rng, invalid_tail: int = 0, z_step: int = 1):
+    """n distinct packed keys of voxels around (512, 512, 512) at grid 1,
+    ascending, every z_step-th z only (gaps in z for z_step > 1), then
+    invalid_tail INVALID keys."""
+    half = 4
+    while (2 * half) ** 3 // z_step < 2 * n:
+        half *= 2
+    axis = np.arange(512 - half, 512 + half)
+    x, y, z = np.meshgrid(axis, axis, axis[::z_step], indexing="ij")
+    keys = np.unique((x << 20) | (y << 10) | z)
+    keys = np.sort(rng.choice(keys, size=n, replace=False))
+    keys = np.concatenate([keys, np.full(invalid_tail, tvox.INVALID_KEY)])
+    return keys.astype(np.int32), half
+
+
+def _queries_for(keys: np.ndarray, half: int, rng):
+    """Queries at grid 1 about the table's voxels (coordinate c of a voxel
+    is floor(q) + 512): random ones over the box and one voxel past it, the
+    first and the last key's voxels (runs cut by either end of the table),
+    one out of range (INVALID cells) and a masked-out one."""
+    q = rng.uniform(-half - 1.5, half + 1.5, (200, 3))
+    valid = keys[keys != tvox.INVALID_KEY]
+
+    def centre(k):
+        return np.array([(k >> 20) & 1023, (k >> 10) & 1023, k & 1023]) \
+            - 512 + 0.5
+
+    ends = [centre(valid[0]), centre(valid[-1]),
+            centre(valid[-1]) + [0.0, 0.0, 1.0],
+            centre(valid[0]) - [0.0, 0.0, 1.0], [600.0, 0.0, 0.0],
+            [0.0, 0.0, -600.0], centre(valid[0])]
+    q = np.concatenate([q, ends]).astype(np.float32)
+    mask = np.ones(len(q), bool)
+    mask[-1] = False
+    return q, mask
+
+
+def _searchsorted_rows(keys, q, mask):
+    """voxel.lookup_voxels on the 27 packed cell keys of each query."""
+    coords = tvox.voxel_coords(torch.tensor(q), torch.zeros(3),
+                               torch.tensor(1.0))
+    cells = coords[:, None, :] + tvox._neighbor_offsets(1, "cpu")[None]
+    idx, found = tvox.lookup_voxels(
+        torch.tensor(keys),
+        tvox.pack_coords(cells, torch.tensor(mask)[:, None]))
+    return idx.numpy(), found.numpy()
+
+
+SAMPLED = [(1, 4), (2, 4), (3, 4), (4, 4), (5, 4), (7, 8), (8, 8), (9, 8),
+           (50000, 0)]
+
+
+@pytest.mark.parametrize("tail", [0, 37, 3000],
+                         ids=["no-padding", "invalid-tail", "long-invalid-tail"])
+@pytest.mark.parametrize("n_keys,stride", SAMPLED,
+                         ids=[f"{n}-keys-stride-{s or 'kernel'}"
+                              for n, s in SAMPLED])
+def test_sampled_search_is_searchsorted(n_keys, stride, tail):
+    """Nine run searches through every stride-th key give
+    torch.searchsorted's row (clamped to the last row) and found flag for
+    all 27 cells: tables of 1, 2, s - 1, s, s + 1 keys at s = 4 and 8, and
+    50,000 keys at the kernel's own stride, with and without an INVALID
+    tail (a long one: the kernel's probes then sample past the last valid
+    key); queries below the first and above the last key, runs cut by the
+    table's ends, out-of-range and masked-out queries."""
+    rng = np.random.default_rng([n_keys, stride, tail])
+    keys, half = _table_keys(n_keys, rng, tail)
+    q, mask = _queries_for(keys, half, rng)
+    idx, found, used = native.table_rows(q, mask, np.zeros(3, np.float32),
+                                         1.0, keys, stride)
+    want_idx, want_found = _searchsorted_rows(keys, q, mask)
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_array_equal(found, want_found)
+    n = len(keys)
+    # the kernel samples the keys below the INVALID tail
+    assert used == (stride or (1 if n_keys <= INDEX_BUDGET else 16))
+    assert -(-n_keys // used) <= INDEX_BUDGET
+    assert found.any() and not found[~mask].any()
+    # the clamp to the last row, or the first INVALID row past the keys
+    assert (idx == 0).any() and (idx == (n - tail if tail else n - 1)).any()
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4, 0])
+def test_run_search_over_gaps_in_z(stride):
+    """A table that holds every other z: the runs' chained bounds skip the
+    missing cells exactly as separate searches do."""
+    rng = np.random.default_rng(stride)
+    keys, half = _table_keys(600, rng, 5, z_step=2)
+    assert (np.diff(keys[keys != tvox.INVALID_KEY] & 1023) != 1).all()
+    q, mask = _queries_for(keys, half, rng)
+    idx, found, _ = native.table_rows(q, mask, np.zeros(3, np.float32),
+                                      1.0, keys, stride)
+    want_idx, want_found = _searchsorted_rows(keys, q, mask)
+    np.testing.assert_array_equal(idx, want_idx)
+    np.testing.assert_array_equal(found, want_found)
+    assert found.any() and not found.all()

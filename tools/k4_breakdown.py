@@ -37,16 +37,19 @@ SLOTS = 10   # kK4ClockSlots in csrc/loam_kernels.cu
 WARPS = 4    # kK4Warps
 
 
-def build_libraries(variants):
-    """One library per list of extra nvcc flags, nvcc started for all at
-    once; returns them loaded and bound, in order."""
+def build_libraries(variants, csrc=None, logs=None):
+    """One library per list of extra nvcc flags, from the kernel sources in
+    ``csrc`` (the package's own by default), nvcc started for all at once;
+    returns them loaded and bound, in order. ``logs``, a list, gets nvcc's
+    output of each build it ran."""
     from simpleslam_tpu_torch.ops import _build
 
-    src = os.path.join(_build.CSRC, "loam_kernels.cu")
+    csrc = csrc or _build.CSRC
+    src = os.path.join(csrc, "loam_kernels.cu")
     h = hashlib.sha256()
-    for name in sorted(os.listdir(_build.CSRC)):
+    for name in sorted(os.listdir(csrc)):
         if name.endswith((".cu", ".h")):
-            with open(os.path.join(_build.CSRC, name), "rb") as f:
+            with open(os.path.join(csrc, name), "rb") as f:
                 h.update(f.read())
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     jobs = []
@@ -68,11 +71,15 @@ def build_libraries(variants):
             log = proc.communicate()[0]
             if proc.returncode != 0:
                 raise SystemExit(f"nvcc {' '.join(extra)} failed:\n{log}")
+            if logs is not None:
+                logs.append(log)
         lib = ctypes.CDLL(out)
         _build._bind(lib)
-        if "-DLOAM_K4_CLOCKS" in extra:
-            lib.loam_k4_set_clocks.argtypes = [ctypes.c_void_p]
-            lib.loam_k4_set_clocks.restype = ctypes.c_int
+        for flag, fn in (("-DLOAM_K4_CLOCKS", "loam_k4_set_clocks"),
+                         ("-DLOAM_K3_CLOCKS", "loam_k3_set_clocks")):
+            if flag in extra:
+                getattr(lib, fn).argtypes = [ctypes.c_void_p]
+                getattr(lib, fn).restype = ctypes.c_int
         libs.append(lib)
     return libs
 
