@@ -11,7 +11,12 @@ fails with a nonzero exit on the first problem:
 3. kernels against their plain PyTorch versions at main-path shapes (a
    merged map at dims (96, 96, 16) x 24 points, 8192 queries): K1
    ``fit_and_linearize_merged`` and K2 ``plane_normal_equations`` within the
-   reference's tolerances, K1 bit-identical across two calls; K3
+   reference's tolerances, K1 bit-identical across two calls, K2's sums
+   bit-identical to its body compiled for the host (``native.k2_host``, the
+   same layout and fixed order); K1 and K2 at 5 and 131 queries (fewer than
+   the grid's blocks) and with every query masked out; the device time of
+   one K1 and one K2 wrapper call over all its launches, which must be one
+   (torch.profiler; PyTorch's fills of new tensors counted apart); K3
    ``gn_loop_fused`` (the whole GN loop in one launch) against its plain
    version ``gn_loop_stepwise`` from the on-pose start and from a 0.25 m
    offset start, degeneracy guard off and on: pose within 1e-4 m and
@@ -110,7 +115,9 @@ fails with a nonzero exit on the first problem:
    ``gn_loop_stepwise`` with equal iterations and gathers, every rank and
    two runs bit-identical, K1 (merged) or K4 (dense, table) and K2
    launched, K3, the plain versions and the unsharded stepwise loop not;
-   K1, K2 and K4 against their plain versions on rank 1's block; the NDT
+   K1, K2 and K4 against their plain versions on rank 1's block (K1's and
+   K2's device time and launches per wrapper call there, profiled in a
+   fresh process: one launch each, or the phase fails); the NDT
    and VGICP sharded batches (2 ranks, pose rows within 5e-3 of the
    one-rank batch); the sharded pose-graph solve in its three modes on a
    256-node ring (cost falls, poses within 1e-3 m of the one-rank PCG
@@ -155,7 +162,8 @@ fails with a nonzero exit on the first problem:
    path: K3's launches, for K1 and K2 the times their bodies ran as phases
    of K3, from the recorded gathers and iterations, the K1 phases of the
    ``scan2map`` paths of 13 reading the dense map's or the table's
-   candidates, and the standalone launches of the mesh path; for K4 its
+   candidates, and the standalone launches of the mesh path; K1's and K2's
+   launches per wrapper call and the device time of one call; for K4 its
    own launches, on the mesh path's dense and table registrations; K3's
    times and bounds on those targets, its device-time split and barrier
    floor), the nvidia-smi line, and last a JSON line
@@ -178,6 +186,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 # cuBLAS is deterministic only with a fixed workspace; set before CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -199,11 +208,17 @@ OK_MISMATCH_MAX = 1e-3    # share of queries whose plane gate may flip
 POSE_T_TOL = 1e-4         # metres
 POSE_R_TOL = 1e-5         # radians
 COUNT_MISMATCH_MAX = 0.01  # share of comparisons whose counts may differ
-# n_valid may differ by a few rows where the two loops' poses differ by 1e-5 m
-# after a step: with the guard on, torch's f32 eigh and the kernel's Jacobi
-# eigensolve disagree by that much on these ill-conditioned systems (the CPU
-# tests hold both against float64), and such a gap moves the 5-NN choice of
-# about one query in 5000
+# K3 against the stepwise loop on the same inputs, counts equal (phases 3, 6
+# and 13, FusedTally): the stepwise loop's guarded solve takes its eigenbasis
+# in float64, within 1e-7 m of K3's Jacobi step, so the two meet within
+# 2e-6 m / 1.2e-7 rad on the H100; the bounds above stay for phase 17's
+# sharded registrations (their sums cross ranks) and the corridor fixture
+STEPWISE_T_TOL = 1e-5     # metres
+STEPWISE_R_TOL = 1e-6     # radians
+# n_valid may differ by a few rows where the two loops' poses differ after a
+# step: the two 6x6 solves round differently on these ill-conditioned
+# systems (the CPU tests hold both against float64), and a gap of 1e-5 m
+# moves the 5-NN choice of about one query in 5000
 N_VALID_TOL = 4
 START_OFFSET = (0.25, -0.15, 0.05)   # the perturbed start, metres
 SMALL_OFFSET = (0.03, -0.02, 0.01)   # a start that needs no new gather
@@ -212,6 +227,11 @@ N_FUSED_SCANS = 48        # scans of the streamed path K3 is held on
 # roofline of the card (NVIDIA H100 SXM data sheet)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+
+
+def us(ms) -> str:
+    """Milliseconds as microseconds, or "not measured"."""
+    return "not measured" if ms is None else f"{1e3 * ms:.2f} us"
 
 
 def fail(msg: str) -> None:
@@ -281,27 +301,102 @@ def bounds(n_q: int, n_valid: int, n_cand: int, gathers: int = 1,
     return out
 
 
-def kernel_device_ms(kernel_name: str, fn, launches: int = 20):
-    """Median device milliseconds of the CUDA kernel whose name contains
-    ``kernel_name`` over ``launches`` calls of ``fn``, from torch.profiler;
-    None when three windows in a row recorded no such device event."""
+EVENTS_HOW = "CUDA events around 50 back-to-back launches"
+
+
+class DeviceCall(NamedTuple):
+    """The device work of one call of a function (``call_device``)."""
+
+    ms: float          # device ms of its hand kernels per call
+    launches: int      # hand-kernel launches per call
+    by_kernel: dict    # kernel name -> (launches per call, device ms per call)
+    own_ms: float      # PyTorch's own kernels, copies and fills: ms per call
+    own_launches: int  # and their launches per call
+
+
+def call_device(fn, calls: int = 20):
+    """The device work of one call of ``fn`` (a ``DeviceCall``), from
+    torch.profiler over ``calls`` calls after a warm-up. A hand kernel is
+    any device kernel that is not PyTorch's (``at::``) and no copy or fill;
+    under ``torch.use_deterministic_algorithms`` (set here) every
+    ``torch.empty`` adds a fill kernel of PyTorch's, counted apart. A
+    kernel's launches per call are its events over the calls, rounded (a
+    window now and then loses an event), and its time per call that many
+    times its mean duration. None when three windows in a row recorded no
+    hand kernel."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(launches):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        durs = [e.time_range.end - e.time_range.start for e in prof.events()
-                if kernel_name in e.name
-                and e.device_type == torch.autograd.DeviceType.CUDA]
-        if durs:
-            return 1e-3 * statistics.median(durs)
+        durs = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                durs.setdefault(e.name, []).append(
+                    1e-3 * (e.time_range.end - e.time_range.start))
+        hand, own = {}, [0.0, 0]
+        for name, d in durs.items():
+            per = round(len(d) / calls)
+            ms = per * statistics.fmean(d)
+            if "at::" in name or name.lower().startswith(("memcpy",
+                                                          "memset")):
+                own[0] += ms
+                own[1] += per
+            elif per:
+                hand[name] = (per, ms)
+        if hand:
+            return DeviceCall(sum(t for _, t in hand.values()),
+                              sum(n for n, _ in hand.values()), hand,
+                              own[0], own[1])
     return None
 
 
-EVENTS_HOW = "CUDA events around 50 back-to-back launches"
+def kernel_device_ms(kernel_name: str, fn, calls: int = 20):
+    """Device milliseconds per launch of the hand kernel whose name contains
+    ``kernel_name``, over ``calls`` calls of ``fn`` (``call_device``); None
+    when the profiler saw no launch of it."""
+    t = call_device(fn, calls)
+    hits = [v for name, v in (t.by_kernel.items() if t else ())
+            if kernel_name in name]
+    if not hits:
+        return None
+    return sum(ms for _, ms in hits) / sum(n for n, _ in hits)
+
+
+def kernel_short_name(name: str) -> str:
+    """A device kernel's function name without its namespace, template
+    arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.split("<")[0].split()[-1] if name.strip() else "?"
+
+
+def describe_call(t) -> str:
+    """``call_device``'s result in words."""
+    if t is None:
+        return "device time not measured (the profiler saw no hand kernel)"
+    return (f"{1e3 * t.ms:.2f} us of device time per call in {t.launches} "
+            f"hand launch(es) ("
+            + ", ".join(f"{kernel_short_name(k)} {1e3 * v:.2f} us"
+                        for k, (_, v) in t.by_kernel.items())
+            + f"), PyTorch's own {1e3 * t.own_ms:.2f} us in {t.own_launches} "
+            f"launch(es) (fills of new tensors)")
+
+
+def one_launch_per_call(name: str, t) -> None:
+    """Fail unless the profiler saw a wrapper call launch exactly one hand
+    kernel (``t`` from ``call_device``)."""
+    if t is None:
+        fail(f"{name}: the profiler saw no hand kernel, so the launches per "
+             "call are not known")
+    if t.launches != 1:
+        fail(f"{name}: {t.launches} hand-kernel launches per wrapper call, "
+             f"expected 1: {t.by_kernel}")
 
 
 def kernel_device_ms_how(kernel_name: str, fn, bare=None):
@@ -314,17 +409,23 @@ def kernel_device_ms_how(kernel_name: str, fn, bare=None):
     dev = kernel_device_ms(kernel_name, fn)
     if dev is not None:
         return dev, "torch.profiler"
-    bare = bare or fn
+    return events_ms(bare or fn), EVENTS_HOW
+
+
+def events_ms(fn, n: int = 50) -> float:
+    """Milliseconds per call of ``fn`` from CUDA events around ``n``
+    back-to-back calls, after one: an upper bound of its device time (the
+    gaps between launches, and every kernel it launches, count)."""
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    bare()
+    fn()
     torch.cuda.synchronize()
     a.record()
-    for _ in range(50):
-        bare()
+    for _ in range(n):
+        fn()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / 50.0, EVENTS_HOW
+    return a.elapsed_time(b) / n
 
 
 def device_activity(prof):
@@ -526,26 +627,97 @@ def hold_kernels(label: str, vm, src, sqrt_r, p_on, p_off) -> dict:
     again = lk.plane_normal_equations(planes, p_off, sqrt_r)
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail("K2 is not deterministic")
+    k2_against_host(f"K2 {label} frozen planes", got, planes, p_off, sqrt_r)
     return errs
+
+
+def k2_against_host(tag: str, got, planes, p_map, sqrt_r) -> None:
+    """K2's sums against its body compiled for the host
+    (``native.k2_host``, csrc/fixed_sums.h) on the card's grid: the same
+    layout, order and f32 / f64 operations, so the same bits."""
+    from simpleslam_tpu_torch import native
+    from simpleslam_tpu_torch.ops import _build
+
+    grid = _build.library().loam_gn_loop_grid()
+    host = native.k2_host(*(t.cpu().numpy() for t in planes),
+                          p_map.cpu().numpy(), sqrt_r.cpu().numpy(), grid)
+    same = (np.array_equal(host[0].view(np.uint32),
+                           got[0].cpu().numpy().view(np.uint32))
+            and np.array_equal(host[1].view(np.uint32),
+                               got[1].cpu().numpy().view(np.uint32))
+            and host[2] == int(got[2]))
+    print(f"  {tag}: bit-identical to K2's body on the host ({grid} "
+          f"blocks): {same}")
+    if not same:
+        fail(f"{tag}: the card's sums are not its host body's")
+
+
+def k1_k2_edge_cases(vm, src, sqrt_r, p_map) -> None:
+    """K1 and K2 against their plain versions where the layout is thin:
+    fewer queries than blocks (5, 131), and every query masked out (no row:
+    exact zeros); n_valid and the plane gates equal, the sums within the
+    tolerances, two calls bit-identical, one launch each."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    cases = {f"Q={n}": (p_map[:n], sqrt_r[:n], src.mask[:n])
+             for n in (5, 131)}
+    cases["all masked"] = (p_map, sqrt_r, torch.zeros_like(src.mask))
+    for case, (p, sr, m) in cases.items():
+        got = lk.fit_and_linearize_merged(vm, p, sr, m)
+        again = lk.fit_and_linearize_merged(vm, p, sr, m)
+        k2 = lk.plane_normal_equations(got[3], p, sr)
+        k2_again = lk.plane_normal_equations(got[3], p, sr)
+        one_launch_per_call(f"K1 {case}", call_device(
+            lambda: lk.fit_and_linearize_merged(vm, p, sr, m)))
+        one_launch_per_call(f"K2 {case}", call_device(
+            lambda: lk.plane_normal_equations(got[3], p, sr)))
+        ref = lk.fit_and_linearize_merged_plain(vm, p, sr, m)
+        ref2 = lk.plane_normal_equations_plain(got[3], p, sr)
+        for name, a, b, c in (("K1", got[:3], ref[:3], again[:3]),
+                              ("K2", k2, ref2, k2_again)):
+            jtj, jte = b[0].abs().max(), b[1].abs().max()
+            ok = (int(a[2]) == int(b[2])
+                  and float((a[0] - b[0]).abs().max()) <= JTJ_RTOL * jtj
+                  and float((a[1] - b[1]).abs().max()) <= JTE_RTOL * jte
+                  and all(torch.equal(x, y) for x, y in zip(a, c)))
+            print(f"  {name} {case}: n_valid {int(a[2])} vs plain "
+                  f"{int(b[2])}, sums within the tolerances and two calls "
+                  f"bit-identical: {ok}")
+            if not ok:
+                fail(f"{name} {case}: off its plain version")
+        if not torch.equal(got[3].ok, ref[3].ok) or (
+                case == "all masked" and (got[3].centroid.any()
+                                          or got[3].normal.any())):
+            fail(f"K1 {case}: plane gates differ from the plain version")
+
+
+CALL_HOW = ("torch.profiler, every hand-kernel launch of one wrapper call, "
+            "mean of 20 calls")
+CALL_HOW_FRESH = CALL_HOW + ", in a fresh process"
 
 
 def time_kernels(vm, src, sqrt_r, p_on, p_off) -> dict:
     """Median ms of each kernel's wrapper and of its plain version, and K1's
-    and K2's device ms per launch (torch.profiler; each wrapper launches the
-    kernel and a one-block sum of its block partials, not counted)."""
+    and K2's device ms per wrapper call over all the call's launches
+    (torch.profiler) with the launches per call; a call that launches more
+    than one kernel fails."""
     from simpleslam_tpu_torch.ops import loam_kernels as lk
 
     planes = lk.fit_and_linearize_merged(vm, p_on, sqrt_r, src.mask)[3]
-    dev = {
-        "k1_dev": kernel_device_ms_how(
-            "fit_and_linearize_merged_kernel",
-            lambda: lk.fit_and_linearize_merged(vm, p_on, sqrt_r, src.mask)),
-        "k2_dev": kernel_device_ms_how(
-            "plane_normal_equations_kernel",
-            lambda: lk.plane_normal_equations(planes, p_off, sqrt_r))}
+    calls = {
+        "k1": call_device(lambda: lk.fit_and_linearize_merged(
+            vm, p_on, sqrt_r, src.mask)),
+        "k2": call_device(lambda: lk.plane_normal_equations(planes, p_off,
+                                                            sqrt_r))}
+    for k, c in calls.items():
+        print(f"  {k.upper()}: {describe_call(c)}")
+        one_launch_per_call(k.upper(), c)
     return {
-        **{k: v[0] for k, v in dev.items()},
-        **{k + "_how": v[1] for k, v in dev.items()},
+        **{k + "_dev": (None if c is None else c[0])
+           for k, c in calls.items()},
+        **{k + "_dev_how": CALL_HOW for k in calls},
+        **{k + "_launches": (None if c is None else c[1])
+           for k, c in calls.items()},
         "k1": time_ms(lambda: lk.fit_and_linearize_merged(
             vm, p_on, sqrt_r, src.mask)),
         "k1_plain": time_ms(lambda: lk.fit_and_linearize_merged_plain(
@@ -610,9 +782,10 @@ class FusedTally:
                   f"{c_got[2]}, converged {c_got[3]} (stepwise: n_valid "
                   f"{c_ref[2]}, the rest the same); pose {t_err:.3e} m, "
                   f"{r_err:.3e} rad from stepwise; second launch bit-identical")
-        if t_err > POSE_T_TOL or r_err > POSE_R_TOL:
+        if t_err > STEPWISE_T_TOL or r_err > STEPWISE_R_TOL:
             fail(f"K3 {tag}: pose {t_err:.3e} m / {r_err:.3e} rad from the "
-                 f"stepwise loop (limits {POSE_T_TOL} / {POSE_R_TOL})")
+                 f"stepwise loop (limits {STEPWISE_T_TOL} / "
+                 f"{STEPWISE_R_TOL})")
         return got
 
     def check(self) -> None:
@@ -753,14 +926,16 @@ def kernels(card: str):
     dev = torch.device("cuda")
     vm, src, sqrt_r, p_on, p_off, pose = kernel_inputs(dev)
     errs = hold_kernels("offline", vm, src, sqrt_r, p_on, p_off)
+    k1_k2_edge_cases(vm, src, sqrt_r, p_off)
     tally = FusedTally()
     hold_fused(tally, "offline", vm, src, pose)
     k3_edge_cases(tally, dev)
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
         print(f"  {k.upper()} median {t[k]:.4f} ms per wrapper call, device "
-              f"{1e3 * t[k + '_dev']:.2f} us per launch ({t[k + '_dev_how']}),"
-              f" plain {t[k + '_plain']:.4f} ms ({card}, Q={N_QUERIES})")
+              f"{us(t[k + '_dev'])} per call in {t[k + '_launches']} "
+              f"launch(es) ({t[k + '_dev_how']}), plain {t[k + '_plain']:.4f}"
+              f" ms ({card}, Q={N_QUERIES})")
     time_fused(vm, src, pose, card, f"Q={N_QUERIES}")
     src_file = "simpleslam_tpu_torch/csrc/loam_kernels.cu"
     results = [
@@ -1095,9 +1270,9 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
     t = time_kernels(vm, src, sqrt_r, p_on, p_off)
     for k in ("k1", "k2"):
         print(f"  {k.upper()} median {t[k]:.4f} ms per wrapper call, device "
-              f"{1e3 * t[k + '_dev']:.2f} us per launch ({t[k + '_dev_how']}),"
-              f" plain {t[k + '_plain']:.4f} ms ({card}, Q={cap}, streamed "
-              f"full inputs)")
+              f"{us(t[k + '_dev'])} per call in {t[k + '_launches']} "
+              f"launch(es) ({t[k + '_dev_how']}), plain {t[k + '_plain']:.4f}"
+              f" ms ({card}, Q={cap}, streamed full inputs)")
     t.update(time_fused(vm, src, pose, card, f"Q={cap}, streamed full inputs"))
     iters, gathers = counts["on-pose"]
     bd = bounds(cap, n_valid_q, 8 * vm.slab_pts, gathers, iters)
@@ -1108,6 +1283,12 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
               f"({n_valid_q} valid queries of {cap}); measured "
               f"{1e3 * t[k]:.1f} us per wrapper call = "
               f"{100 * bd[k][0] / t[k]:.2f} % of the bound's rate ({card})")
+    for k in ("k1", "k2"):
+        if t[k + "_dev"] is not None:
+            print(f"  {k.upper()} device time of one wrapper call "
+                  f"{us(t[k + '_dev'])} = "
+                  f"{100 * bd[k][0] / t[k + '_dev']:.2f} % of the bound's "
+                  f"rate ({card})")
     print(f"  K3 from the on-pose start ({gathers} K1 phases in {iters} "
           f"iterations): device time {1e3 * t['k3_dev']:.1f} us per "
           f"launch = {100 * bd['k3'][0] / t['k3_dev']:.2f} % of the "
@@ -2259,12 +2440,12 @@ def mesh_registration_check(n: int, res: dict, ref: dict, ref_k3: dict,
     by_path[f"mesh_registration_n{n}"] = total
 
 
-def mesh_hold_kernels(inp: dict, card: str) -> dict:
-    """K1, K4 (dense and table gathers) and K2 against their plain versions
-    on rank 1's block of the n = 2 shard, at the start pose; times on it."""
+def rank_block(inp: dict):
+    """Rank 1's block of the n = 2 shard of the mesh path's scan: (block,
+    sqrt_r, its queries at the start pose and at the offset, the merged
+    map)."""
     from simpleslam_tpu_torch.ops import geometry as geo
     from simpleslam_tpu_torch.ops import loam
-    from simpleslam_tpu_torch.ops import loam_kernels as lk
     from simpleslam_tpu_torch.ops.pointcloud import PointCloud
 
     src = inp["src"]
@@ -2272,10 +2453,57 @@ def mesh_hold_kernels(inp: dict, card: str) -> dict:
     b = slice(q // 2, q)
     blk = PointCloud(src.xyz[b].contiguous(), src.intensity[b].contiguous(),
                      src.mask[b].contiguous())
-    sqrt_r = loam.source_sqrt_range(blk)
-    p0 = geo.transform_points(inp["init"], blk.xyz)
-    p1 = geo.transform_points(offset_pose(inp["init"]), blk.xyz)
-    merged = inp["targets"]["merged"]
+    return (blk, loam.source_sqrt_range(blk),
+            geo.transform_points(inp["init"], blk.xyz),
+            geo.transform_points(offset_pose(inp["init"]), blk.xyz),
+            inp["targets"]["merged"])
+
+
+def rank_block_calls(inp: dict) -> dict:
+    """One K1 and one K2 wrapper call on rank 1's block, as functions."""
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    blk, sqrt_r, p0, p1, merged = rank_block(inp)
+    planes = lk.fit_and_linearize_merged(merged, p0, sqrt_r, blk.mask)[3]
+    return {"k1": lambda: lk.fit_and_linearize_merged(merged, p0, sqrt_r,
+                                                      blk.mask),
+            "k2": lambda: lk.plane_normal_equations(planes, p1, sqrt_r)}
+
+
+def rank_block_device_main(path: str) -> int:
+    """``--block-device INPUTS``: ``call_device`` of K1 and K2 on rank 1's
+    block of the inputs at ``path``, printed as the last line (JSON)."""
+    environment()
+    build()
+    inp = to_device(torch.load(path, weights_only=False),
+                    torch.device("cuda"))
+    out = {k: call_device(fn) for k, fn in rank_block_calls(inp).items()}
+    print(json.dumps({k: None if c is None else c._asdict()
+                      for k, c in out.items()}))
+    return 0
+
+
+def rank_block_device(path: str) -> dict:
+    """K1's and K2's ``call_device`` on rank 1's block, measured in a fresh
+    process: in a whole run the profiler of this long-lived one comes back
+    empty by phase 17."""
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--block-device", path], capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        fail(f"the rank block's device timing failed: {run.stderr[-2000:]}")
+    got = json.loads(run.stdout.strip().splitlines()[-1])
+    return {k: None if c is None else DeviceCall(**c) for k, c in got.items()}
+
+
+def mesh_hold_kernels(inp: dict, card: str) -> dict:
+    """K1, K4 (dense and table gathers) and K2 against their plain versions
+    on rank 1's block of the n = 2 shard, at the start pose; times on it."""
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    blk, sqrt_r, p0, p1, merged = rank_block(inp)
+    nq = blk.xyz.shape[0]
     err = {}
     got = lk.fit_and_linearize_merged(merged, p0, sqrt_r, blk.mask)
     err["k1"] = compare("mesh K1, rank 1 block", got,
@@ -2284,10 +2512,17 @@ def mesh_hold_kernels(inp: dict, card: str) -> dict:
     err["k2"] = compare("mesh K2, rank 1 block",
                         lk.plane_normal_equations(got[3], p1, sqrt_r),
                         lk.plane_normal_equations_plain(got[3], p1, sqrt_r))
-    t = {"k1": time_ms(lambda: lk.fit_and_linearize_merged(
-             merged, p0, sqrt_r, blk.mask)),
-         "k2": time_ms(lambda: lk.plane_normal_equations(got[3], p1,
-                                                         sqrt_r))}
+    k2_against_host("mesh K2, rank 1 block", lk.plane_normal_equations(
+        got[3], p1, sqrt_r), got[3], p1, sqrt_r)
+    calls = rank_block_calls(inp)
+    t = {k: time_ms(fn) for k, fn in calls.items()}
+    for k, c in rank_block_device(MESH["scan2map"]).items():
+        print(f"  mesh {k.upper()}, rank 1's block ({nq} queries): "
+              f"{describe_call(c)} ({CALL_HOW_FRESH}); wrapper {t[k]:.4f} ms "
+              f"per call ({card})")
+        one_launch_per_call(f"mesh {k.upper()}", c)
+        t[k + "_dev"], t[k + "_dev_how"] = c.ms, CALL_HOW_FRESH
+        t[k + "_launches"] = c.launches
     err["k4"] = 0.0
     for name in ("dense", "table"):
         cand, ok = loam.gather_candidates_at(inp["targets"][name], p0,
@@ -2300,10 +2535,10 @@ def mesh_hold_kernels(inp: dict, card: str) -> dict:
         check_k4(f"mesh {name}, rank 1 block", g4, r4)
         t[f"k4_{name}"] = time_ms(lambda: lk.fit_and_linearize_candidates(
             cand, ok, p0, sqrt_r, blk.mask))
-    print(f"  rank 1's block ({q // 2} queries): K1 {t['k1']:.4f} ms, K2 "
+    print(f"  rank 1's block ({nq} queries): K1 {t['k1']:.4f} ms, K2 "
           f"{t['k2']:.4f} ms, K4 dense {t['k4_dense']:.4f} ms, K4 table "
           f"{t['k4_table']:.4f} ms per wrapper call ({card})")
-    return {"max_abs_err": err, "ms": t, "queries": q // 2}
+    return {"max_abs_err": err, "ms": t, "queries": nq}
 
 
 def mesh_pipeline_check(name: str, runs, ref: tuple, gt, ate_max: float,
@@ -2447,6 +2682,7 @@ def mesh_paths(card: str) -> dict:
     dev = torch.device("cuda")
     by_path = {}
     inp = to_device(torch.load(MESH["scan2map"], weights_only=False), dev)
+    held = mesh_hold_kernels(inp, card)
     ref = {name: _loam_row(loam.gn_loop_stepwise(inp["src"], t,
                                                      inp["init"]))
            for name, t in inp["targets"].items()}
@@ -2465,7 +2701,6 @@ def mesh_paths(card: str) -> dict:
         res1[name] = {"runs": runs, "counts": _counts(),
                       "stats": dict(pmesh.STATS)}
     mesh_registration_check(1, res1, ref, ref_k3, card, by_path)
-    held = mesh_hold_kernels(inp, card)
 
     cy_streams, cy_ref = courtyard_reference()
     cy_path = os.path.join(_mesh_dir(), "courtyard.pkl")
@@ -2916,7 +3151,7 @@ def corridor_guard_check(card: str) -> None:
     JtJ, _, n_valid = loam.build_normal_equations(cpu, vm_cpu, start.cpu())
     floor = DEGEN * float(n_valid)
     w_j, V_j = native.jacobi_eig6(JtJ.numpy())
-    w_t, V_t = torch.linalg.eigh(JtJ.to("cuda"))
+    w_t, V_t = torch.linalg.eigh(JtJ.double().to("cuda"))
     print(f"corridor fixture: K3 against the stepwise loop, guard on: "
           f"{gap:.3e} m, {gap_r:.3e} rad; at the start (n_valid "
           f"{int(n_valid)}, floor {floor:.2f}) K3's Jacobi eigensolve zeroes "
@@ -3247,7 +3482,11 @@ def main() -> int:
                     help="comma-separated subset of " + ",".join(NEW_PATHS)
                     + ": drive just those paths after the build; prints no "
                     "result line")
+    ap.add_argument("--block-device", metavar="INPUTS", default="",
+                    help=argparse.SUPPRESS)   # phase 17's child process
     args = ap.parse_args()
+    if args.block_device:
+        return rank_block_device_main(args.block_device)
     card = environment()
     build()
     if args.only:
@@ -3308,8 +3547,12 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], main_errs[key])
         k["ms"], k["plain_ms"] = main_t[key], main_t[key + "_plain"]
         if key != "k3":
+            # the device time of one wrapper call over all its launches, and
+            # those launches (one: no second pass sums the block partials)
             k["device_ms"] = main_t[key + "_dev"]
             k["device_ms_how"] = main_t[key + "_dev_how"]
+            k["call_device_ms"] = main_t[key + "_dev"]
+            k["launches_per_call"] = main_t[key + "_launches"]
         k["bound_ms"], k["bound_by"] = main_bd[key]
         # no single PyTorch call computes a gather, a 5-round selection, a
         # 3x3 eigensolve and a gated 28-term reduction (or a loop of them)
@@ -3330,6 +3573,9 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], held["max_abs_err"][key])
         k["mesh_block"] = {"queries": held["queries"],
                            "ms": held["ms"][key],
+                           "device_ms": held["ms"][key + "_dev"],
+                           "device_ms_how": held["ms"][key + "_dev_how"],
+                           "launches_per_call": held["ms"][key + "_launches"],
                            "max_abs_err": held["max_abs_err"][key]}
     kern[0]["phase_source_by_path"] = {
         p: {"scan2map_dense": "dense map corner block",

@@ -11,15 +11,25 @@
 // order. No float atomics anywhere: results repeat bit for bit run to run.
 //
 // K1 loam_fit_and_linearize_merged: the whole TPU kernel with the merged-row
-//    gather folded in. One warp per query reads the query's one int16 row of
-//    8 voxels x M points x 3 (1,152 B at M = 24) straight from the merged
-//    voxel map, dequantizes it in registers and runs selection, plane fit,
-//    gates and the J row; the (Q, 8M, 3) candidate tensor never exists in
-//    device memory. It also writes the plane set for K2. Bound: the valid
-//    queries' scattered row reads (bytes).
+//    gather folded in: each query's one int16 row of 8 voxels x M points x 3
+//    (1,152 B at M = 24) is read straight from the merged voxel map and
+//    dequantized on the way; the (Q, 8M, 3) candidate tensor never exists
+//    in device memory. It also writes the plane set for K2. Bound: the
+//    valid queries' scattered row reads (bytes). One launch on K3's layout,
+//    with K3's code: a block of 16 warps per SM owns queries b, b + G, ...
+//    and stages their map-frame points, sqrt(r) and validity in shared
+//    memory; a K1 phase of K3 (k1_phase: each warp double-buffers its next
+//    query's row with cp.async while it selects this one's five points into
+//    the query's record); then one thread per query fits the plane (the
+//    scalar tail), writes it out and adds the query's row (block_rows); the
+//    block's partial in double in K3's fixed order, and the last block to
+//    finish (an integer counter) adds all blocks' partials in K3's fixed
+//    order and rounds each sum to float once (csrc/fixed_sums.h).
 // K2 loam_plane_normal_equations: the TPU kernel's second half (its rows
-//    after the plane fit) against a frozen plane set, one thread per query.
-//    Bound: launch overhead and a (Q, 10)-float stream (bytes).
+//    after the plane fit) against a frozen plane set, one thread per query,
+//    on the same layout with the same block partial and last-block finish:
+//    one launch. Bound: a (Q, 10)-float stream (bytes), below the launch's
+//    own floor.
 // K3 loam_gn_loop: a scan's whole Gauss-Newton registration in one
 //    cooperative launch, K1's and K2's work as its phases (the TPU package
 //    runs the same loop as one lax.while_loop around the kernel), on any of
@@ -58,7 +68,8 @@
 //      row to its sums;
 //    - the block's sums, in double: every thread's sums staged in shared
 //      memory, warp w adds sums w and w + 16, lanes over the threads in
-//      order, then the warp's fixed tree; the partials go to device memory;
+//      order, then the warp's fixed tree (csrc/fixed_sums.h); the partials
+//      go to device memory;
 //    - one grid barrier per iteration (an integer counter, a release add
 //      and acquire loads); then every block adds all blocks' partials the
 //      same way (warp per sum, lanes over the blocks in order, all loads
@@ -91,8 +102,7 @@
 //      in K1 and K3; the five chosen points go to a per-warp record, and the
 //      scalar tail
 //      (centroid, eigensolve, gates, J row, accumulate) runs one lane per
-//      query over up to 32 records at once, where K1 repeats it on 32
-//      lanes;
+//      query over up to 32 records at once;
 //    - one launch: the last block to finish (an integer counter) adds all
 //      block partials in block order and writes J^T J, J^T e and n_valid.
 
@@ -111,28 +121,29 @@
 
 #include <mutex>
 
+#include "fixed_sums.h"
 #include "gn_step.h"
 #include "select5.h"
 #include "target_gather.h"
 
 namespace {
 
+using fs::Plane;
+using fs::accumulate_row;
+using fs::expand_sum;
+
 constexpr int kPlanePts = 5;
 constexpr float kMaxSearchSq = 1.0f;
 constexpr float kPlaneValid = 0.2f;
-constexpr float kPointValid = 0.1f;
 constexpr float kMinPlanarEv = 1e-2f;
 constexpr float kMaxThicknessEv = 2e-2f;
 constexpr int16_t kPadQ = 32767;
 constexpr float kQOff = 16384.0f;
-constexpr int kNSums = 28;      // 21 unique J^T J, 6 J^T e, 1 count
+constexpr int kNSums = fs::kNSums;   // 21 unique J^T J, 6 J^T e, 1 count
 constexpr int kMaxCand = 256;   // 8 candidates per lane
 constexpr int kCandPerLane = kMaxCand / 32;
-constexpr int kK1Warps = 8;     // warps per K1 block
-constexpr int kK1QueriesPerWarp = 4;
-constexpr int kK2Threads = 256;
-constexpr int kK3Warps = 16;    // warps of the one K3 block per SM
-constexpr int kK3Threads = kK3Warps * 32;
+constexpr int kK3Warps = fs::kBlockWarps;   // warps of the one block per SM
+constexpr int kK3Threads = fs::kBlockThreads;
 constexpr int kRowBufElems = kMaxCand * 3;   // int16 per staged row
 constexpr int kPartStride = 32;  // K3's block partial: 28 sums, r_max, pad
                                  // (doubles)
@@ -158,11 +169,6 @@ constexpr int kK4Rec = 21;      // tail record: x[5] y[5] z[5] p[3] sqrt_r q met
 constexpr int kCopyFlags16 = 1;   // flags in 16-byte cp.async chunks
 constexpr int kCopyFlags4 = 2;    // flags in 4-byte cp.async words
 constexpr int kCopyCoords16 = 4;  // coordinates in 16-byte chunks, else 4
-
-struct Plane {
-    float cx, cy, cz, nx, ny, nz;
-    bool ok;
-};
 
 // The merged voxel map as the kernels read it.
 struct MapGeom {
@@ -240,32 +246,6 @@ __device__ void symeig3x3_smallest(float m00, float m01, float m02, float m11,
     v[2] = vz / vn;
 }
 
-// Point-to-plane row of one query against its plane: adds J J^T, J e and 1
-// to acc when the row is valid (plane ok and s > POINT_VALID_THRESH).
-__device__ void accumulate_row(const Plane& pl, float px, float py, float pz,
-                               float sqrt_r, float* acc) {
-    const float d = (px - pl.cx) * pl.nx + (py - pl.cy) * pl.ny
-                  + (pz - pl.cz) * pl.nz;
-    const float s = 1.0f - (0.9f * fabsf(d)) / sqrt_r;
-    if (!(pl.ok && s > kPointValid)) return;
-    float J[6];
-    J[0] = s * pl.nx;
-    J[1] = s * pl.ny;
-    J[2] = s * pl.nz;
-    J[3] = s * (py * pl.nz - pz * pl.ny);
-    J[4] = s * (pz * pl.nx - px * pl.nz);
-    J[5] = s * (px * pl.ny - py * pl.nx);
-    const float e = s * d;
-    int k = 0;
-#pragma unroll
-    for (int i = 0; i < 6; ++i)
-#pragma unroll
-        for (int j = i; j < 6; ++j) acc[k++] += J[i] * J[j];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) acc[21 + i] += J[i] * e;
-    acc[27] += 1.0f;
-}
-
 // Fixed-order tree sum over the warp; lane 0 holds the result.
 __device__ float warp_sum(float x) {
 #pragma unroll
@@ -280,13 +260,13 @@ __device__ __forceinline__ float dequant(int16_t q, float scale, float corner) {
 
 // The query's one merged row: the corner-selected 2x2x2 block at row base + 1
 // (voxel.gather_neighbors_merged); the all-padding sentinel row for a query
-// that is masked out or outside the window.
+// outside the window. A masked-out query reads no row.
 __device__ __forceinline__ const int16_t* merged_row(
-        const MapGeom& g, bool valid, float px, float py, float pz) {
+        const MapGeom& g, float px, float py, float pz) {
     const int bx = static_cast<int>(floorf((px - g.cx0) / g.grid - 0.5f)) + 1;
     const int by = static_cast<int>(floorf((py - g.cy0) / g.grid - 0.5f)) + 1;
     const int bz = static_cast<int>(floorf((pz - g.cz0) / g.grid - 0.5f)) + 1;
-    const bool in = valid && bx >= 0 && bx < g.mx && by >= 0 && by < g.my
+    const bool in = bx >= 0 && bx < g.mx && by >= 0 && by < g.my
                     && bz >= 0 && bz < g.mz;
     const int64_t flat = in
         ? (static_cast<int64_t>(bx) * g.my + by) * g.mz + bz
@@ -457,35 +437,6 @@ __device__ __forceinline__ Plane fit_plane5(const float* x, const float* y,
     return pl;
 }
 
-// 5-NN selection, plane fit and gates of one query against its n_cand
-// candidates, by one warp; every lane returns the same plane.
-template <class Cand>
-__device__ __forceinline__ Plane select_and_fit_any(
-        const Cand& cd, int n_cand, bool valid, float px, float py, float pz,
-        int lane) {
-    int sel[kPlanePts];
-    const bool gate = select5_any(cd, n_cand, valid, px, py, pz, lane, sel);
-    float x[kPlanePts], y[kPlanePts], z[kPlanePts];
-    unsigned present = 0u;
-#pragma unroll
-    for (int k = 0; k < kPlanePts; ++k) {
-        x[k] = y[k] = z[k] = 0.0f;
-        if (sel[k] >= 0) {
-            cd.get(sel[k], x[k], y[k], z[k]);   // a selected one is no padding
-            present |= 1u << k;
-        }
-    }
-    return fit_plane5(x, y, z, present, gate);
-}
-
-// The selection against a staged merged row.
-__device__ __forceinline__ Plane select_and_fit(
-        const int16_t* srow, const MapGeom& g, bool valid, float px, float py,
-        float pz, int lane) {
-    const QuantRow cd = {srow, g.scale, g.cx0, g.cy0, g.cz0};
-    return select_and_fit_any(cd, g.n_cand, valid, px, py, pz, lane);
-}
-
 // The block's sums of every thread's acc[kNSums]: a fixed-order tree over
 // each warp, then the warps in order. Thread t < kNSums returns sum t.
 template <int kWarps>
@@ -503,111 +454,6 @@ __device__ float block_sums(const float* acc, float (*s_acc)[kNSums]) {
     return t;
 }
 
-// K1: one warp per query, kK1QueriesPerWarp queries per warp in order, block
-// partials summed over warps in order.
-__global__ void __launch_bounds__(kK1Warps * 32)
-fit_and_linearize_merged_kernel(
-        const int16_t* __restrict__ rows, int n_cand, const float* scale_p,
-        const float* corner_p, const float* grid_p, int gx, int gy, int gz,
-        const float* __restrict__ p_map, const float* __restrict__ sqrt_r,
-        const uint8_t* __restrict__ mask, int n_q,
-        float* __restrict__ centroid, float* __restrict__ normal,
-        uint8_t* __restrict__ ok_out, float* __restrict__ partials) {
-    __shared__ __align__(16) int16_t s_row[kK1Warps][kRowBufElems];
-    __shared__ float s_acc[kK1Warps][kNSums];
-    const int warp = threadIdx.x >> 5;
-    const int lane = threadIdx.x & 31;
-    const MapGeom g = load_geom(rows, n_cand, scale_p, corner_p, grid_p, gx,
-                                gy, gz);
-    const int row_chunks = n_cand * 3 * 2 / 16;   // 16-byte chunks per row
-    int16_t* srow = s_row[warp];
-
-    float acc[kNSums];
-#pragma unroll
-    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
-
-    for (int it = 0; it < kK1QueriesPerWarp; ++it) {
-        const int qi = (blockIdx.x * kK1Warps + warp) * kK1QueriesPerWarp + it;
-        if (qi >= n_q) break;
-        const float px = p_map[3 * qi], py = p_map[3 * qi + 1],
-                    pz = p_map[3 * qi + 2];
-        const bool valid = mask[qi] != 0;
-        const int4* src = reinterpret_cast<const int4*>(
-            merged_row(g, valid, px, py, pz));
-        int4* dst = reinterpret_cast<int4*>(srow);
-        __syncwarp();
-        for (int k = lane; k < row_chunks; k += 32) dst[k] = src[k];
-        __syncwarp();
-        const Plane pl = select_and_fit(srow, g, valid, px, py, pz, lane);
-        if (lane == 0) {
-            centroid[3 * qi] = pl.cx; centroid[3 * qi + 1] = pl.cy;
-            centroid[3 * qi + 2] = pl.cz;
-            normal[3 * qi] = pl.nx; normal[3 * qi + 1] = pl.ny;
-            normal[3 * qi + 2] = pl.nz;
-            ok_out[qi] = pl.ok ? 1 : 0;
-            accumulate_row(pl, px, py, pz, sqrt_r[qi], acc);
-        }
-    }
-    const float t = block_sums<kK1Warps>(acc, s_acc);
-    if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
-}
-
-// K2: one thread per query against the frozen plane set.
-__global__ void __launch_bounds__(kK2Threads)
-plane_normal_equations_kernel(
-        const float* __restrict__ centroid, const float* __restrict__ normal,
-        const uint8_t* __restrict__ ok, const float* __restrict__ p_map,
-        const float* __restrict__ sqrt_r, int n_q,
-        float* __restrict__ partials) {
-    __shared__ float s_acc[kK2Threads / 32][kNSums];
-    const int qi = blockIdx.x * kK2Threads + threadIdx.x;
-    float acc[kNSums];
-#pragma unroll
-    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
-    if (qi < n_q) {
-        Plane pl;
-        pl.cx = centroid[3 * qi]; pl.cy = centroid[3 * qi + 1];
-        pl.cz = centroid[3 * qi + 2];
-        pl.nx = normal[3 * qi]; pl.ny = normal[3 * qi + 1];
-        pl.nz = normal[3 * qi + 2];
-        pl.ok = ok[qi] != 0;
-        accumulate_row(pl, p_map[3 * qi], p_map[3 * qi + 1], p_map[3 * qi + 2],
-                       sqrt_r[qi], acc);
-    }
-    const float t = block_sums<kK2Threads / 32>(acc, s_acc);
-    if (threadIdx.x < kNSums) partials[blockIdx.x * kNSums + threadIdx.x] = t;
-}
-
-// Sum t of the 28 expanded into the symmetric 6x6 J^T J (row-major), J^T e
-// and the count.
-__device__ __forceinline__ void expand_sum(int t, float s, float* jtj,
-                                           float* jte, int32_t* n_valid) {
-    if (t < 21) {
-        int i = 0, k = t;
-        while (k >= 6 - i) { k -= 6 - i; ++i; }
-        const int j = i + k;
-        jtj[i * 6 + j] = s;
-        jtj[j * 6 + i] = s;
-    } else if (t < 27) {
-        jte[t - 21] = s;
-    } else {
-        *n_valid = static_cast<int32_t>(s);
-    }
-}
-
-// Second pass of K1 and K2: block partials summed in block order,
-// then expanded to the symmetric 6x6 J^T J, J^T e and the int count.
-__global__ void reduce_partials_kernel(const float* __restrict__ partials,
-                                       int n_blocks, float* __restrict__ jtj,
-                                       float* __restrict__ jte,
-                                       int32_t* __restrict__ n_valid) {
-    const int t = threadIdx.x;
-    if (t >= kNSums) return;
-    float s = 0.0f;
-    for (int b = 0; b < n_blocks; ++b) s += partials[b * kNSums + t];
-    expand_sum(t, s, jtj, jte, n_valid);
-}
-
 // ---------------------------------------------------------------------------
 // K3: the whole GN loop of one scan in one cooperative launch
 // ---------------------------------------------------------------------------
@@ -616,7 +462,9 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
 // -DLOAM_K3_CLOCKS, every warp adds SM clock cycles per segment and lane 0
 // writes them into k3_clocks[warp of the grid][kK3ClockSlots] at the end,
 // with the queries it selected, its SM and its start and end on the global
-// timer. The normal build has none of it.
+// timer; -DLOAM_K1_CLOCKS does the same for K1 into k1_clocks
+// (tools/k1_breakdown.py: stage, wait, select, tail, block sums, and the
+// last block's sums in the partials slot). The normal build has none of it.
 constexpr int kK3ClockSlots = 18;
 enum K3Clock {
     kClkPrologue, kClkWait, kClkSearch, kClkStage, kClkSelect, kClkTail,
@@ -625,13 +473,54 @@ enum K3Clock {
 };
 #ifdef LOAM_K3_CLOCKS
 __device__ long long* k3_clocks;
+#endif
+#ifdef LOAM_K1_CLOCKS
+__device__ long long* k1_clocks;
+#endif
+#if defined(LOAM_K3_CLOCKS) || defined(LOAM_K1_CLOCKS)
 #define K3_CLOCK_START(seg) long long k3c_##seg = clock64()
 #define K3_CLOCK_ADD(seg, slot) k3_acc[slot] += clock64() - k3c_##seg
 #define K3_CLOCK_COUNT(slot) ++k3_acc[slot]
+// a kernel's segments and its start; a device function that adds to its
+// caller's segments takes them as k3_acc
+#define K3_CLOCK_DECL                               \
+    long long k3_acc[kK3ClockSlots] = {0};          \
+    const unsigned long long k3_t0 = clock_t0()
+#define K3_CLOCK_PARAM , long long* k3_acc
+#define K3_CLOCK_ARG , k3_acc
 #else
 #define K3_CLOCK_START(seg)
 #define K3_CLOCK_ADD(seg, slot)
 #define K3_CLOCK_COUNT(slot)
+#define K3_CLOCK_DECL
+#define K3_CLOCK_PARAM
+#define K3_CLOCK_ARG
+#endif
+
+// The warp's start on the global timer, and at the end its segments, SM,
+// start and end into row `row` of `clocks` (lane 0), in a clock build.
+#if defined(LOAM_K3_CLOCKS) || defined(LOAM_K1_CLOCKS)
+__device__ __forceinline__ unsigned long long clock_t0() {
+    unsigned long long t0;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    return t0;
+}
+
+__device__ __forceinline__ void clock_write(long long* clocks, long long row,
+                                            const long long* k3_acc,
+                                            unsigned long long t0, int iters) {
+    if ((threadIdx.x & 31) != 0) return;
+    unsigned long long t1;
+    unsigned smid;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
+    long long* o = clocks + row * kK3ClockSlots;
+    for (int k = 0; k < kClkSm; ++k) o[k] = k3_acc[k];
+    o[kClkSm] = static_cast<long long>(smid);
+    o[kClkT0] = static_cast<long long>(t0);
+    o[kClkT1] = static_cast<long long>(t1);
+    o[kClkIters] = iters;
+}
 #endif
 
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
@@ -730,7 +619,7 @@ struct MergedSrc {
                                           unsigned char* buf, int*,
                                           const int*, int lane) const {
         const int4* src = reinterpret_cast<const int4*>(
-            merged_row(g, true, px, py, pz));
+            merged_row(g, px, py, pz));
         int4* dst = reinterpret_cast<int4*>(buf);
         for (int k = lane; k < row_chunks; k += 32) cp_async16(dst + k, src + k);
     }
@@ -951,16 +840,17 @@ struct TableParams {
     }
 };
 
-// Dynamic shared memory of K3: the warps' double candidate buffers (and
-// their cell counts), the table's sampled index and the cells of the
-// block's queries, the staged row sums of the block's threads, then the
-// block's per-query state: source point, sqrt(r), plane (6 floats), the
-// selected points' record (15 floats), ok and validity.
+// Dynamic shared memory of K3 (and K1, on the merged map's source): the
+// warps' double candidate buffers (and their cell counts), the table's
+// sampled index and the cells of the block's queries, the staged row sums
+// of the block's threads, then the block's per-query state: source point,
+// sqrt(r), plane (6 floats), the selected points' record (15 floats), ok
+// and validity.
 __host__ __device__ inline size_t gn_loop_smem_bytes(
         int n_q, int grid, int buf_bytes, int meta_ints, int index_ints,
         int cell_ints) {
-    const size_t n_local = static_cast<size_t>((n_q + grid - 1) / grid);
-    const size_t n_thr = n_local < kK3Threads ? n_local : kK3Threads;
+    const size_t n_local = static_cast<size_t>(fs::n_local_max(n_q, grid));
+    const size_t n_thr = fs::threads_used(n_q, grid, kK3Threads);
     return static_cast<size_t>(kK3Warps) * 2 * buf_bytes
          + sizeof(int) * (kK3Warps * 2 * meta_ints + index_ints
                           + cell_ints * n_local)
@@ -968,7 +858,34 @@ __host__ __device__ inline size_t gn_loop_smem_bytes(
          + 2 * n_local;
 }
 
-// Fixed-order tree sum over the warp in double; lane 0 holds the result.
+// That memory cut into its parts, for n_local_max queries a block and n_thr
+// threads with sums.
+template <class Params>
+struct BlockSmem {
+    unsigned char* bufs;
+    int *meta, *index, *cells;
+    float *red, *x, *y, *z, *sqrt_r, *plane, *rec;
+    uint8_t *ok, *valid;
+    __device__ __forceinline__ BlockSmem(unsigned char* raw, int n_local_max,
+                                         int n_thr) {
+        bufs = raw;
+        meta = reinterpret_cast<int*>(bufs + kK3Warps * 2 * Params::kBufBytes);
+        index = meta + kK3Warps * 2 * Params::kMetaInts;
+        cells = index + Params::kIndexInts;
+        red = reinterpret_cast<float*>(cells + Params::kCellInts * n_local_max);
+        x = red + kNSums * n_thr;
+        y = x + n_local_max;
+        z = y + n_local_max;
+        sqrt_r = z + n_local_max;
+        plane = sqrt_r + n_local_max;        // 6 floats per query
+        rec = plane + 6 * n_local_max;       // kRecFloats per query
+        ok = reinterpret_cast<uint8_t*>(rec + kRecFloats * n_local_max);
+        valid = ok + n_local_max;
+    }
+};
+
+// Fixed-order tree sum over the warp in double; lane 0 holds the result
+// (fs::tree32 on the host).
 __device__ __forceinline__ double warp_sum_d(double x) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
@@ -979,9 +896,9 @@ __device__ __forceinline__ double warp_sum_d(double x) {
 // The block's 28 sums over its threads t < n_thr, in a fixed order and in
 // double, and the block's partial written for the grid: thread t stores its
 // acc[] in s_red[k][t]; warp w adds sums k = w, w + W, ...: lane l the
-// threads l, l + 32, ... one after another, then the warp's fixed tree.
-// Slot kNSums of the partial is the block's largest valid range. Every
-// thread calls it.
+// threads l, l + 32, ... one after another, then the warp's fixed tree
+// (csrc/fixed_sums.h). Slot kNSums of the partial is the block's largest
+// valid range. Every thread calls it.
 __device__ __forceinline__ void k3_block_partial(const float* acc,
                                                  float* s_red, int n_thr,
                                                  float block_rmax,
@@ -996,8 +913,7 @@ __device__ __forceinline__ void k3_block_partial(const float* acc,
     for (int k = warp; k <= kNSums; k += kK3Warps) {
         double t = 0.0;
         if (k < kNSums) {
-            for (int i = lane; i < n_thr; i += 32) t += s_red[k * n_thr + i];
-            t = warp_sum_d(t);
+            t = warp_sum_d(fs::lane_sum(s_red + k * n_thr, n_thr, lane));
         } else {
             t = block_rmax;
         }
@@ -1048,6 +964,218 @@ __device__ __forceinline__ void k3_grid_sums(const double* part,
     }
 }
 
+// K1's and K2's finish, after the block's partial (k3_block_partial): the
+// last block to arrive (an integer counter) adds all blocks' partials in
+// K3's fixed order (k3_grid_sums), rounds each sum to float once, writes
+// J^T J, J^T e and n_valid, and leaves the counter at zero for the next
+// launch. Every thread calls it. The ordering is the grid barrier's: the
+// block's partial before __syncthreads and thread 0's add, which releases
+// (cumulative) and acquires at once, so the last block's loads after it and
+// __syncthreads see every block's partial; no full fence on any thread.
+__device__ __forceinline__ void last_block_sums(const double* part,
+                                                unsigned* counter, float* jtj,
+                                                float* jte, int32_t* n_valid) {
+    __shared__ float s_sum[kPartStride];
+    __shared__ bool s_last;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        unsigned arrived;
+        asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                     : "=r"(arrived) : "l"(counter) : "memory");
+        s_last = arrived == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    k3_grid_sums(part, s_sum);
+    __syncthreads();
+    if (threadIdx.x < kNSums)
+        expand_sum(threadIdx.x, s_sum[threadIdx.x], jtj, jte, n_valid);
+    if (threadIdx.x == 0) *counter = 0u;
+}
+
+// Where a K1 phase finds query j in the map frame: K3 moves the block's
+// source points by the current pose ...
+struct PosedQueries {
+    const float* pose;
+    const float *x, *y, *z;
+    __device__ __forceinline__ void at(int j, float* p) const {
+        transform_point(pose, x[j], y[j], z[j], p);
+    }
+};
+
+// ... and K1 is given them in the map frame.
+struct MapQueries {
+    const float *x, *y, *z;
+    __device__ __forceinline__ void at(int j, float* p) const {
+        p[0] = x[j];
+        p[1] = y[j];
+        p[2] = z[j];
+    }
+};
+
+// A K1 phase's selections on source `src` (after its locate()): warp
+// `warp` takes the block's valid queries warp, warp + W, ...; the next
+// one's candidates are on their way (cp.async) while this one's selection
+// runs, which leaves the query's record: its points x, y, z at k, 5 + k,
+// 10 + k of s_rec + kRecFloats j, and in s_ok[j]
+// - (kFull false, K3) the gate, the points kept only where it passed: K3
+//   fits no other plane;
+// - (kFull true, K1) the gate at bit 5 and which points exist at bits 0-4:
+//   K1 writes every query's plane, also where the gate fails.
+template <class Params, bool kFull, class Src, class Where>
+__device__ __forceinline__ void k1_phase(
+        const Src& src, const Where& at, int n_local, const uint8_t* s_valid,
+        unsigned char* s_bufs, int* s_meta, const int* s_cells, float* s_rec,
+        uint8_t* s_ok, int warp, int lane K3_CLOCK_PARAM) {
+    constexpr int kBufBytes = Params::kBufBytes;
+    constexpr int kMetaInts = Params::kMetaInts;
+    K3_CLOCK_START(stage0);
+    unsigned char* bufs = s_bufs + warp * 2 * kBufBytes;
+    int* metas = s_meta + warp * 2 * kMetaInts;
+    int j = warp;
+    while (j < n_local && !s_valid[j]) j += kK3Warps;
+    int stage = 0;
+    float p[3];
+    if (j < n_local) {
+        at.at(j, p);
+        src.stage(j, p[0], p[1], p[2], bufs, metas, s_cells, lane);
+    }
+    cp_async_commit();
+    K3_CLOCK_ADD(stage0, kClkStage);
+    while (j < n_local) {
+        K3_CLOCK_START(stage);
+        int jn = j + kK3Warps;
+        while (jn < n_local && !s_valid[jn]) jn += kK3Warps;
+        if (jn < n_local) {
+            float pn[3];
+            at.at(jn, pn);
+            src.stage(jn, pn[0], pn[1], pn[2],
+                      bufs + (stage ^ 1) * kBufBytes,
+                      metas + (stage ^ 1) * kMetaInts, s_cells, lane);
+        }
+        cp_async_commit();   // an empty group after the last query
+        K3_CLOCK_ADD(stage, kClkStage);
+        K3_CLOCK_START(wait);
+        cp_async_wait_but_one();
+        __syncwarp();
+        K3_CLOCK_ADD(wait, kClkWait);
+        K3_CLOCK_START(select);
+        at.at(j, p);
+        const auto cd = src.cand(bufs + stage * kBufBytes,
+                                 metas + stage * kMetaInts);
+        int sel[kPlanePts];
+        const bool gate = select5_any(cd, src.n_cand(), true, p[0], p[1],
+                                      p[2], lane, sel);
+        // lane k keeps point k: x, y, z at k, 5 + k, 10 + k of the record
+        if constexpr (kFull) {
+            const int sk = lane == 0 ? sel[0] : lane == 1 ? sel[1]
+                         : lane == 2 ? sel[2] : lane == 3 ? sel[3] : sel[4];
+            float* r = s_rec + kRecFloats * j;
+            if (lane < kPlanePts && sk >= 0)
+                cd.get(sk, r[lane], r[kPlanePts + lane],
+                       r[2 * kPlanePts + lane]);
+            if (lane == 0) {
+                unsigned meta = gate ? 32u : 0u;
+#pragma unroll
+                for (int k = 0; k < kPlanePts; ++k)
+                    if (sel[k] >= 0) meta |= 1u << k;
+                s_ok[j] = static_cast<uint8_t>(meta);
+            }
+        } else {
+            if (gate && lane < kPlanePts) {
+                // all five exist where the gate passed
+                const int sk = lane == 0 ? sel[0] : lane == 1 ? sel[1]
+                             : lane == 2 ? sel[2] : lane == 3 ? sel[3]
+                             : sel[4];
+                float* r = s_rec + kRecFloats * j;
+                cd.get(sk, r[lane], r[kPlanePts + lane],
+                       r[2 * kPlanePts + lane]);
+            }
+            if (lane == 0) s_ok[j] = gate ? 1 : 0;
+        }
+        __syncwarp();   // the buffer is free for the load after next
+        K3_CLOCK_ADD(select, kClkSelect);
+        K3_CLOCK_COUNT(kClkQueries);
+        j = jn;
+        stage ^= 1;
+    }
+}
+
+// K3's planes, kept in shared memory between its K1 phases (only those of
+// the queries whose gate passed) ...
+struct KeptPlanes {
+    float* s_plane;
+    uint8_t* s_ok;
+    __device__ __forceinline__ void put(int j, const Plane& pl) const {
+        float* pl_j = s_plane + 6 * j;
+        pl_j[0] = pl.cx; pl_j[1] = pl.cy; pl_j[2] = pl.cz;
+        pl_j[3] = pl.nx; pl_j[4] = pl.ny; pl_j[5] = pl.nz;
+        s_ok[j] = pl.ok ? 1 : 0;
+    }
+    __device__ __forceinline__ Plane get(int j) const {
+        const float* pl_j = s_plane + 6 * j;
+        Plane pl;
+        pl.cx = pl_j[0]; pl.cy = pl_j[1]; pl.cz = pl_j[2];
+        pl.nx = pl_j[3]; pl.ny = pl_j[4]; pl.nz = pl_j[5];
+        pl.ok = true;
+        return pl;
+    }
+};
+
+// ... and K1's plane set in device memory, every query's (query j of block
+// `first` at fs::query(first, j, grid)); K1 has no K2 phase to read it.
+struct PlaneSet {
+    float* centroid;
+    float* normal;
+    uint8_t* ok;
+    int first, grid;
+    __device__ __forceinline__ void put(int j, const Plane& pl) const {
+        const int qi = fs::query(first, j, grid);
+        centroid[3 * qi] = pl.cx; centroid[3 * qi + 1] = pl.cy;
+        centroid[3 * qi + 2] = pl.cz;
+        normal[3 * qi] = pl.nx; normal[3 * qi + 1] = pl.ny;
+        normal[3 * qi + 2] = pl.nz;
+        ok[qi] = pl.ok ? 1 : 0;
+    }
+};
+
+// The rows of the block's queries: thread t takes j = t, t + T, ...; after
+// a K1 phase (`refit`, always for kFull) it first fits the plane of each
+// record (the scalar tail, one query a thread: centroid, 3x3 eigensolve,
+// gates) and hands it to keep.put(j, plane), else it takes query j's kept
+// plane (keep.get(j)); then it adds the query's row to acc. The records are
+// k1_phase's of the same kFull.
+template <bool kFull, class Where, class Keep>
+__device__ __forceinline__ void block_rows(bool refit, const Where& at,
+                                           int n_local, const float* s_rec,
+                                           const uint8_t* s_ok,
+                                           const float* s_sqrt_r,
+                                           const Keep& keep, float* acc) {
+    for (int j = threadIdx.x; j < n_local; j += kK3Threads) {
+        unsigned present = 0x1fu;
+        bool gate = true;
+        if constexpr (kFull) {
+            const unsigned meta = s_ok[j];
+            present = meta & 31u;
+            gate = ((meta >> 5) & 1u) != 0u;
+        } else {
+            if (!s_ok[j]) continue;
+        }
+        Plane pl;
+        if (kFull || refit) {
+            const float* r = s_rec + kRecFloats * j;
+            pl = fit_plane5(r, r + kPlanePts, r + 2 * kPlanePts, present,
+                            gate);
+            keep.put(j, pl);
+        } else if constexpr (!kFull) {
+            pl = keep.get(j);
+        }
+        float p[3];
+        at.at(j, p);
+        accumulate_row(pl, p[0], p[1], p[2], s_sqrt_r[j], acc);
+    }
+}
+
 template <class Params>
 __global__ void __launch_bounds__(kK3Threads, 1)
 gn_loop_kernel(
@@ -1056,8 +1184,6 @@ gn_loop_kernel(
         const float* __restrict__ init_pose, int max_iters,
         float degen_per_row, float* partials, unsigned* counters,
         float* __restrict__ out) {
-    constexpr int kBufBytes = Params::kBufBytes;
-    constexpr int kMetaInts = Params::kMetaInts;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     __shared__ float s_sum[kPartStride];
     __shared__ float s_pose[12], s_anchor[12];
@@ -1067,32 +1193,13 @@ gn_loop_kernel(
 
     const int n_blocks = gridDim.x;
     const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-#ifdef LOAM_K3_CLOCKS
-    long long k3_acc[kK3ClockSlots] = {0};
-    unsigned long long k3_t0;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(k3_t0));
-#endif
+    K3_CLOCK_DECL;
     K3_CLOCK_START(prologue);
-    const int n_local_max = (n_q + n_blocks - 1) / n_blocks;
-    const int n_thr = n_local_max < kK3Threads ? n_local_max : kK3Threads;
+    const int n_local_max = fs::n_local_max(n_q, n_blocks);
+    const int n_thr = fs::threads_used(n_q, n_blocks, kK3Threads);
     const int first = blockIdx.x;   // queries first, first + G, ...
-    const int n_local = first < n_q
-        ? (n_q - first + n_blocks - 1) / n_blocks : 0;
-
-    unsigned char* s_bufs = smem_raw;
-    int* s_meta = reinterpret_cast<int*>(s_bufs + kK3Warps * 2 * kBufBytes);
-    int* s_index = s_meta + kK3Warps * 2 * kMetaInts;
-    int* s_cells = s_index + Params::kIndexInts;
-    float* s_red = reinterpret_cast<float*>(
-        s_cells + Params::kCellInts * n_local_max);
-    float* s_x = s_red + kNSums * n_thr;
-    float* s_y = s_x + n_local_max;
-    float* s_z = s_y + n_local_max;
-    float* s_sqrt_r = s_z + n_local_max;
-    float* s_plane = s_sqrt_r + n_local_max;     // 6 floats per query
-    float* s_rec = s_plane + 6 * n_local_max;    // kRecFloats per query
-    uint8_t* s_ok = reinterpret_cast<uint8_t*>(s_rec + kRecFloats * n_local_max);
-    uint8_t* s_valid = s_ok + n_local_max;
+    const int n_local = fs::n_local(n_q, n_blocks, first);
+    const BlockSmem<Params> sm(smem_raw, n_local_max, n_thr);
 
     const auto src = prm.load();
     const int32_t probe = src.first_probe();
@@ -1101,15 +1208,15 @@ gn_loop_kernel(
     // largest valid range; the start pose; the source's own set-up
     float my_rmax = 0.0f;
     for (int j = tid; j < n_local; j += kK3Threads) {
-        const int qi = first + j * n_blocks;
+        const int qi = fs::query(first, j, n_blocks);
         const float x = src_xyz[3 * qi], y = src_xyz[3 * qi + 1],
                     z = src_xyz[3 * qi + 2];
         const bool valid = mask[qi] != 0;
         const float r = gn::norm3(x, y, z);
-        s_x[j] = x; s_y[j] = y; s_z[j] = z;
-        s_sqrt_r[j] = sqrtf(fmaxf(r, 1e-6f));
-        s_valid[j] = valid ? 1 : 0;
-        s_ok[j] = 0;
+        sm.x[j] = x; sm.y[j] = y; sm.z[j] = z;
+        sm.sqrt_r[j] = sqrtf(fmaxf(r, 1e-6f));
+        sm.valid[j] = valid ? 1 : 0;
+        sm.ok[j] = 0;
         if (valid) my_rmax = fmaxf(my_rmax, r);
     }
 #pragma unroll
@@ -1121,7 +1228,7 @@ gn_loop_kernel(
         s_pose[tid] = init_pose[src_i];
         s_anchor[tid] = init_pose[src_i];
     }
-    src.prepare(s_index, probe);
+    src.prepare(sm.index, probe);
     __syncthreads();
     float block_rmax = 0.0f;
     for (int w = 0; w < kK3Warps; ++w) block_rmax = fmaxf(block_rmax, s_wmax[w]);
@@ -1133,105 +1240,33 @@ gn_loop_kernel(
         float pose[12];
 #pragma unroll
         for (int i = 0; i < 12; ++i) pose[i] = s_pose[i];
+        const PosedQueries at = {pose, sm.x, sm.y, sm.z};
 
         if (refit) {
             // K1 phase: the table's searches for all the block's queries;
-            // then warp `warp` takes the block's valid queries warp,
-            // warp + W, ...: the next one's candidates are on their way
-            // (cp.async) while this one's selection runs, which leaves the
-            // query's gate and five points in its record
+            // then the warps' selections
             ++gathers;
             K3_CLOCK_START(search);
             if constexpr (Params::kCellInts > 0) {
-                src.locate(pose, s_x, s_y, s_z, s_valid, n_local, s_cells,
-                           s_index);
+                src.locate(pose, sm.x, sm.y, sm.z, sm.valid, n_local,
+                           sm.cells, sm.index);
                 __syncthreads();
             }
             K3_CLOCK_ADD(search, kClkSearch);
-            K3_CLOCK_START(stage0);
-            unsigned char* bufs = s_bufs + warp * 2 * kBufBytes;
-            int* metas = s_meta + warp * 2 * kMetaInts;
-            int j = warp;
-            while (j < n_local && !s_valid[j]) j += kK3Warps;
-            int stage = 0;
-            float p[3];
-            if (j < n_local) {
-                transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                src.stage(j, p[0], p[1], p[2], bufs, metas, s_cells, lane);
-            }
-            cp_async_commit();
-            K3_CLOCK_ADD(stage0, kClkStage);
-            while (j < n_local) {
-                K3_CLOCK_START(stage);
-                int jn = j + kK3Warps;
-                while (jn < n_local && !s_valid[jn]) jn += kK3Warps;
-                if (jn < n_local) {
-                    float pn[3];
-                    transform_point(pose, s_x[jn], s_y[jn], s_z[jn], pn);
-                    src.stage(jn, pn[0], pn[1], pn[2],
-                              bufs + (stage ^ 1) * kBufBytes,
-                              metas + (stage ^ 1) * kMetaInts, s_cells, lane);
-                }
-                cp_async_commit();   // an empty group after the last query
-                K3_CLOCK_ADD(stage, kClkStage);
-                K3_CLOCK_START(wait);
-                cp_async_wait_but_one();
-                __syncwarp();
-                K3_CLOCK_ADD(wait, kClkWait);
-                K3_CLOCK_START(select);
-                transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-                const auto cd = src.cand(bufs + stage * kBufBytes,
-                                         metas + stage * kMetaInts);
-                int sel[kPlanePts];
-                const bool gate = select5_any(cd, src.n_cand(), true, p[0],
-                                              p[1], p[2], lane, sel);
-                if (gate && lane < kPlanePts) {
-                    // lane k keeps point k (all five exist where the gate
-                    // passed): x, y, z at k, 5 + k, 10 + k of the record
-                    const int sk = lane == 0 ? sel[0] : lane == 1 ? sel[1]
-                                 : lane == 2 ? sel[2] : lane == 3 ? sel[3]
-                                 : sel[4];
-                    float* r = s_rec + kRecFloats * j;
-                    cd.get(sk, r[lane], r[kPlanePts + lane],
-                           r[2 * kPlanePts + lane]);
-                }
-                if (lane == 0) s_ok[j] = gate ? 1 : 0;
-                __syncwarp();   // the buffer is free for the load after next
-                K3_CLOCK_ADD(select, kClkSelect);
-                K3_CLOCK_COUNT(kClkQueries);
-                j = jn;
-                stage ^= 1;
-            }
+            k1_phase<Params, false>(src, at, n_local, sm.valid, sm.bufs,
+                                    sm.meta, sm.cells, sm.rec, sm.ok, warp,
+                                    lane K3_CLOCK_ARG);
         }
 
-        // the rows: thread t takes the block's queries t, t + T, ...; in a
-        // K1 phase it first fits the plane of each record (the scalar tail,
-        // one query a thread), in a K2 phase it reads the kept plane
+        // the rows: in a K1 phase each record's plane is fitted first, in
+        // a K2 phase the kept plane is read
         K3_CLOCK_START(rows);
         __syncthreads();
         float acc[kNSums];
 #pragma unroll
         for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
-        for (int j = tid; j < n_local; j += kK3Threads) {
-            if (!s_ok[j]) continue;
-            float* pl_j = s_plane + 6 * j;
-            Plane pl;
-            if (refit) {
-                const float* r = s_rec + kRecFloats * j;
-                pl = fit_plane5(r, r + kPlanePts, r + 2 * kPlanePts, 0x1fu,
-                                true);
-                pl_j[0] = pl.cx; pl_j[1] = pl.cy; pl_j[2] = pl.cz;
-                pl_j[3] = pl.nx; pl_j[4] = pl.ny; pl_j[5] = pl.nz;
-                s_ok[j] = pl.ok ? 1 : 0;
-            } else {
-                pl.cx = pl_j[0]; pl.cy = pl_j[1]; pl.cz = pl_j[2];
-                pl.nx = pl_j[3]; pl.ny = pl_j[4]; pl.nz = pl_j[5];
-                pl.ok = true;
-            }
-            float p[3];
-            transform_point(pose, s_x[j], s_y[j], s_z[j], p);
-            accumulate_row(pl, p[0], p[1], p[2], s_sqrt_r[j], acc);
-        }
+        block_rows<false>(refit, at, n_local, sm.rec, sm.ok, sm.sqrt_r,
+                          KeptPlanes{sm.plane, sm.ok}, acc);
         if (refit) {
             K3_CLOCK_ADD(rows, kClkTail);
         } else {
@@ -1243,7 +1278,7 @@ gn_loop_kernel(
         K3_CLOCK_START(bsums);
         double* part = reinterpret_cast<double*>(partials)
             + static_cast<size_t>(iters & 1) * kPartStride * n_blocks;
-        k3_block_partial(acc, s_red, n_thr, block_rmax, part);
+        k3_block_partial(acc, sm.red, n_thr, block_rmax, part);
         K3_CLOCK_ADD(bsums, kClkBlockSums);
         K3_CLOCK_START(barrier);
         grid_barrier(&counters[0],
@@ -1316,21 +1351,102 @@ gn_loop_kernel(
     grid_barrier_release(counters);
 #ifdef LOAM_K3_CLOCKS
     K3_CLOCK_ADD(epilogue, kClkEpilogue);
-    if (lane == 0) {
-        unsigned long long t1;
-        unsigned smid;
-        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t1));
-        asm volatile("mov.u32 %0, %%smid;" : "=r"(smid));
-        long long* o = k3_clocks
-            + (static_cast<long long>(blockIdx.x) * kK3Warps + warp)
-              * kK3ClockSlots;
-        for (int k = 0; k < kClkSm; ++k) o[k] = k3_acc[k];
-        o[kClkSm] = static_cast<long long>(smid);
-        o[kClkT0] = static_cast<long long>(k3_t0);
-        o[kClkT1] = static_cast<long long>(t1);
-        o[kClkIters] = iters;
-    }
+    clock_write(k3_clocks, static_cast<long long>(blockIdx.x) * kK3Warps + warp,
+                k3_acc, k3_t0, iters);
 #endif
+}
+
+// K1: a K1 phase of K3 on the merged map at map-frame queries, then every
+// query's plane written out and its row added, one thread per query; the
+// block's partial, and the last block's sums of all partials. One launch on
+// K3's grid (one block per SM) and shared-memory layout.
+__global__ void __launch_bounds__(kK3Threads, 1)
+fit_and_linearize_merged_kernel(
+        const MergedParams prm, const float* __restrict__ p_map,
+        const float* __restrict__ sqrt_r, const uint8_t* __restrict__ mask,
+        int n_q, float* __restrict__ centroid, float* __restrict__ normal,
+        uint8_t* __restrict__ ok_out, double* partials, unsigned* counter,
+        float* __restrict__ jtj, float* __restrict__ jte,
+        int32_t* __restrict__ n_valid) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int n_blocks = gridDim.x;
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+    K3_CLOCK_DECL;
+    K3_CLOCK_START(prologue);
+    const int n_local_max = fs::n_local_max(n_q, n_blocks);
+    const int n_thr = fs::threads_used(n_q, n_blocks, kK3Threads);
+    const int first = blockIdx.x;
+    const int n_local = fs::n_local(n_q, n_blocks, first);
+    const BlockSmem<MergedParams> sm(smem_raw, n_local_max, n_thr);
+    const MergedSrc src = prm.load();
+    // a masked-out query's record says no point and no gate: its plane is
+    // the zero plane, as the plain version's
+    for (int j = tid; j < n_local; j += kK3Threads) {
+        const int qi = fs::query(first, j, n_blocks);
+        sm.x[j] = p_map[3 * qi];
+        sm.y[j] = p_map[3 * qi + 1];
+        sm.z[j] = p_map[3 * qi + 2];
+        sm.sqrt_r[j] = sqrt_r[qi];
+        sm.valid[j] = mask[qi] != 0 ? 1 : 0;
+        sm.ok[j] = 0;
+    }
+    __syncthreads();
+    K3_CLOCK_ADD(prologue, kClkPrologue);
+    const MapQueries at = {sm.x, sm.y, sm.z};
+    k1_phase<MergedParams, true>(src, at, n_local, sm.valid, sm.bufs,
+                                 sm.meta, sm.cells, sm.rec, sm.ok, warp,
+                                 lane K3_CLOCK_ARG);
+    K3_CLOCK_START(rows);
+    __syncthreads();
+    float acc[kNSums];
+#pragma unroll
+    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
+    block_rows<true>(true, at, n_local, sm.rec, sm.ok, sm.sqrt_r,
+                     PlaneSet{centroid, normal, ok_out, first, n_blocks}, acc);
+    K3_CLOCK_ADD(rows, kClkTail);
+    K3_CLOCK_START(bsums);
+    k3_block_partial(acc, sm.red, n_thr, 0.0f, partials);
+    K3_CLOCK_ADD(bsums, kClkBlockSums);
+    K3_CLOCK_START(finish);
+    last_block_sums(partials, counter, jtj, jte, n_valid);
+#ifdef LOAM_K1_CLOCKS
+    K3_CLOCK_ADD(finish, kClkPartials);
+    clock_write(k1_clocks, static_cast<long long>(blockIdx.x) * kK3Warps + warp,
+                k3_acc, k3_t0, 1);
+#endif
+}
+
+// K2: one thread per query against the frozen plane set, on K1's layout
+// with its block partial and last-block finish; one launch. Its dynamic
+// shared memory is the staged row sums (kNSums x the threads used).
+__global__ void __launch_bounds__(kK3Threads, 1)
+plane_normal_equations_kernel(
+        const float* __restrict__ centroid, const float* __restrict__ normal,
+        const uint8_t* __restrict__ ok, const float* __restrict__ p_map,
+        const float* __restrict__ sqrt_r, int n_q, double* partials,
+        unsigned* counter, float* __restrict__ jtj, float* __restrict__ jte,
+        int32_t* __restrict__ n_valid) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const int n_blocks = gridDim.x, first = blockIdx.x;
+    const int n_local = fs::n_local(n_q, n_blocks, first);
+    float acc[kNSums];
+#pragma unroll
+    for (int k = 0; k < kNSums; ++k) acc[k] = 0.0f;
+    for (int j = threadIdx.x; j < n_local; j += kK3Threads) {
+        const int qi = fs::query(first, j, n_blocks);
+        Plane pl;
+        pl.cx = centroid[3 * qi]; pl.cy = centroid[3 * qi + 1];
+        pl.cz = centroid[3 * qi + 2];
+        pl.nx = normal[3 * qi]; pl.ny = normal[3 * qi + 1];
+        pl.nz = normal[3 * qi + 2];
+        pl.ok = ok[qi] != 0;
+        accumulate_row(pl, p_map[3 * qi], p_map[3 * qi + 1],
+                       p_map[3 * qi + 2], sqrt_r[qi], acc);
+    }
+    k3_block_partial(acc, reinterpret_cast<float*>(smem_raw),
+                     fs::threads_used(n_q, n_blocks, kK3Threads), 0.0f,
+                     partials);
+    last_block_sums(partials, counter, jtj, jte, n_valid);
 }
 
 // `n` grid barriers and nothing else, on K3's grid: the barrier's cost.
@@ -1692,42 +1808,59 @@ int gn_loop_grid_cached() {
     return sms[dev];
 }
 
+// Raise `kernel`'s dynamic shared memory limit where `smem` bytes are above
+// the default 48 KB.
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+}
+
 }  // namespace
 
 extern "C" {
 
-int loam_k1_blocks(int n_q) {
-    const int per_block = kK1Warps * kK1QueriesPerWarp;
-    return (n_q + per_block - 1) / per_block;
-}
-
-int loam_k2_blocks(int n_q) { return (n_q + kK2Threads - 1) / kK2Threads; }
-
 int loam_max_candidates() { return kMaxCand; }
 
+// K1 on the merged map: one launch on K3's grid (loam_gn_loop_grid()
+// blocks) with K3's shared memory on the merged map (loam_gn_loop_smem(n_q,
+// 0) bytes). Its workspace is K3's: partials of loam_gn_loop_grid() x
+// loam_gn_loop_partial_stride() floats and one zeroed 32-bit counter, which
+// the launch leaves at zero; the last block writes jtj, jte and n_valid.
 int loam_fit_and_linearize_merged(
         const void* rows, int n_cand, const void* scale, const void* corner,
         const void* grid, int gx, int gy, int gz, const void* p_map,
         const void* sqrt_r, const void* mask, int n_q, void* centroid,
-        void* normal, void* ok, void* partials, void* jtj, void* jte,
-        void* n_valid, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = loam_k1_blocks(n_q);
-    fit_and_linearize_merged_kernel<<<nb, kK1Warps * 32, 0, st>>>(
+        void* normal, void* ok, void* partials, void* counter, void* jtj,
+        void* jte, void* n_valid, void* stream) {
+    const int n_blocks = gn_loop_grid_cached();
+    if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    if (n_cand < 1 || n_cand > kMaxCand)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = gn_loop_smem_bytes(
+        n_q, n_blocks, MergedParams::kBufBytes, MergedParams::kMetaInts,
+        MergedParams::kIndexInts, MergedParams::kCellInts);
+    cudaError_t err = allow_smem(fit_and_linearize_merged_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const MergedParams prm = {
         static_cast<const int16_t*>(rows), n_cand,
         static_cast<const float*>(scale), static_cast<const float*>(corner),
-        static_cast<const float*>(grid), gx, gy, gz,
-        static_cast<const float*>(p_map), static_cast<const float*>(sqrt_r),
-        static_cast<const uint8_t*>(mask), n_q, static_cast<float*>(centroid),
-        static_cast<float*>(normal), static_cast<uint8_t*>(ok),
-        static_cast<float*>(partials));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    reduce_partials_kernel<<<1, 32, 0, st>>>(
-        static_cast<const float*>(partials), nb, static_cast<float*>(jtj),
+        static_cast<const float*>(grid), gx, gy, gz};
+    fit_and_linearize_merged_kernel<<<n_blocks, kK3Threads, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
+        prm, static_cast<const float*>(p_map),
+        static_cast<const float*>(sqrt_r), static_cast<const uint8_t*>(mask),
+        n_q, static_cast<float*>(centroid), static_cast<float*>(normal),
+        static_cast<uint8_t*>(ok), static_cast<double*>(partials),
+        static_cast<unsigned*>(counter), static_cast<float*>(jtj),
         static_cast<float*>(jte), static_cast<int32_t*>(n_valid));
     return static_cast<int>(cudaGetLastError());
 }
+
+// Rows of K1's clock buffer (-DLOAM_K1_CLOCKS): one per warp of its grid.
+int loam_k1_clock_rows(int) { return gn_loop_grid_cached() * kK3Warps; }
 
 // K4's grid: blocks of kK4Warps warps, each warp walking about
 // kK4QueriesPerWarp queries (at least one block).
@@ -1767,21 +1900,25 @@ int loam_fit_and_linearize_candidates(
     return static_cast<int>(cudaGetLastError());
 }
 
+// K2: one launch on K1's grid, with K1's workspace.
 int loam_plane_normal_equations(
         const void* centroid, const void* normal, const void* ok,
         const void* p_map, const void* sqrt_r, int n_q, void* partials,
-        void* jtj, void* jte, void* n_valid, void* stream) {
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int nb = loam_k2_blocks(n_q);
-    plane_normal_equations_kernel<<<nb, kK2Threads, 0, st>>>(
+        void* counter, void* jtj, void* jte, void* n_valid, void* stream) {
+    const int n_blocks = gn_loop_grid_cached();
+    if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+    const size_t smem = sizeof(float) * kNSums
+                      * fs::threads_used(n_q, n_blocks, kK3Threads);
+    cudaError_t err = allow_smem(plane_normal_equations_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    plane_normal_equations_kernel<<<n_blocks, kK3Threads, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(centroid), static_cast<const float*>(normal),
         static_cast<const uint8_t*>(ok), static_cast<const float*>(p_map),
-        static_cast<const float*>(sqrt_r), n_q, static_cast<float*>(partials));
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    reduce_partials_kernel<<<1, 32, 0, st>>>(
-        static_cast<const float*>(partials), nb, static_cast<float*>(jtj),
-        static_cast<float*>(jte), static_cast<int32_t*>(n_valid));
+        static_cast<const float*>(sqrt_r), n_q,
+        static_cast<double*>(partials), static_cast<unsigned*>(counter),
+        static_cast<float*>(jtj), static_cast<float*>(jte),
+        static_cast<int32_t*>(n_valid));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -1829,13 +1966,8 @@ int launch_gn_loop(Params prm, const void* src_xyz, const void* mask,
     size_t smem = gn_loop_smem_bytes(n_q, n_blocks, Params::kBufBytes,
                                      Params::kMetaInts, Params::kIndexInts,
                                      Params::kCellInts);
-    if (smem > 48 * 1024) {   // above the default limit only on request
-        cudaError_t err = cudaFuncSetAttribute(
-            gn_loop_kernel<Params>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    cudaError_t err = allow_smem(gn_loop_kernel<Params>, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const float* src_p = static_cast<const float*>(src_xyz);
     const uint8_t* mask_p = static_cast<const uint8_t*>(mask);
     const float* pose_p = static_cast<const float*>(init_pose);
@@ -1846,7 +1978,7 @@ int launch_gn_loop(Params prm, const void* src_xyz, const void* mask,
                     &degen_per_row, &partials_p, &counters_p, &out_p};
     // a cooperative launch is refused, not queued, when its grid cannot be
     // co-resident: the error comes back from this call
-    cudaError_t err = cudaLaunchCooperativeKernel(
+    err = cudaLaunchCooperativeKernel(
         reinterpret_cast<void*>(gn_loop_kernel<Params>), dim3(n_blocks),
         dim3(kK3Threads), args, smem, st);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1919,6 +2051,15 @@ int loam_gn_loop_table(
 int loam_k3_set_clocks(void* buf) {
     long long* p = static_cast<long long*>(buf);
     return static_cast<int>(cudaMemcpyToSymbol(k3_clocks, &p, sizeof(p)));
+}
+#endif
+
+#ifdef LOAM_K1_CLOCKS
+// Where K1's clock build writes: loam_k1_clock_rows(n_q) x kK3ClockSlots
+// int64 (see k1_clocks).
+int loam_k1_set_clocks(void* buf) {
+    long long* p = static_cast<long long*>(buf);
+    return static_cast<int>(cudaMemcpyToSymbol(k1_clocks, &p, sizeof(p)));
 }
 #endif
 

@@ -344,9 +344,10 @@ def ekf_replay_chunk(x: np.ndarray, P: np.ndarray, flags: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# the GN loop kernel's host-testable headers, compiled for the host: its
-# small step (csrc/gn_step.h) and its candidate index math
-# (csrc/target_gather.h)
+# the LOAM kernels' host-testable headers, compiled for the host: the GN
+# loop's small step (csrc/gn_step.h), its candidate index math
+# (csrc/target_gather.h), the selection (csrc/select5.h) and the layout and
+# fixed-order sums of K1, K2 and K3 (csrc/fixed_sums.h)
 # ---------------------------------------------------------------------------
 
 GN_SRC = os.path.join(_PKG, "csrc", "gn_step_host.cpp")
@@ -355,6 +356,8 @@ TG_SRC = os.path.join(_PKG, "csrc", "target_gather_host.cpp")
 S5_SRC = os.path.join(_PKG, "csrc", "select5_host.cpp")
 S5_HEADER = os.path.join(_PKG, "csrc", "select5.h")
 TG_HEADER = os.path.join(_PKG, "csrc", "target_gather.h")
+FS_SRC = os.path.join(_PKG, "csrc", "fixed_sums_host.cpp")
+FS_HEADER = os.path.join(_PKG, "csrc", "fixed_sums.h")
 _kernel_libs: dict = {}
 
 
@@ -410,6 +413,14 @@ def _bind_s5(lib: ctypes.CDLL) -> None:
     lib.select5_host.argtypes = [f32p, u8p, f32p, u8p, ctypes.c_int,
                                  ctypes.c_int, ctypes.c_float,
                                  ctypes.POINTER(ctypes.c_int32), u8p]
+
+
+def _bind_fs(lib: ctypes.CDLL) -> None:
+    f32p, u8p = ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_uint8)
+    ci = ctypes.c_int
+    lib.fixed_k2_host.restype = ci
+    lib.fixed_k2_host.argtypes = [f32p, f32p, u8p, f32p, f32p, ci, ci, f32p,
+                                  f32p, ctypes.POINTER(ctypes.c_int32)]
 
 
 def _gn_load() -> ctypes.CDLL:
@@ -531,3 +542,28 @@ def select5(cand: np.ndarray, ok: np.ndarray, p: np.ndarray,
         raise ValueError(f"select5: {n_cand} candidates per query: a warp "
                          "takes 1 to 256")
     return sel, gate.astype(bool)
+
+
+def k2_host(centroid: np.ndarray, normal: np.ndarray, ok: np.ndarray,
+            p: np.ndarray, sqrt_r: np.ndarray, grid: int):
+    """The body of the CUDA kernel K2 (``plane_normal_equations``) on the
+    host, ``grid`` blocks and their lanes emulated (``csrc/fixed_sums.h``):
+    normal equations of queries ``p`` (Q, 3) f32 with ``sqrt_r`` (Q,)
+    against frozen planes ``centroid``, ``normal`` (Q, 3) and ``ok`` (Q,),
+    summed in the kernel's fixed order in double and rounded to float once.
+    Returns (J^T J (6, 6) f32, J^T e (6,) f32, n_valid int)."""
+    lib = _kernel_host_lib("fixedsums", FS_SRC, FS_HEADER, _bind_fs)
+    centroid = _f32c(centroid).reshape(-1, 3)
+    n_q = len(centroid)
+    normal, p = _f32c(normal).reshape(n_q, 3), _f32c(p).reshape(n_q, 3)
+    sqrt_r, ok = _f32c(sqrt_r).reshape(n_q), _u8(ok).reshape(n_q)
+    jtj = np.empty(36, np.float32)
+    jte = np.empty(6, np.float32)
+    nv = np.zeros(1, np.int32)
+    err = lib.fixed_k2_host(
+        _fp(centroid), _fp(normal), ok.ctypes.data_as(ctypes.POINTER(
+            ctypes.c_uint8)), _fp(p), _fp(sqrt_r), n_q, int(grid), _fp(jtj),
+        _fp(jte), nv.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if err:
+        raise ValueError(f"k2_host: a grid of {grid} blocks")
+    return jtj.reshape(6, 6), jte, int(nv[0])

@@ -61,23 +61,19 @@ def _nvcc() -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.loam_k1_blocks.argtypes = [ci]
-    lib.loam_k1_blocks.restype = ci
-    lib.loam_k2_blocks.argtypes = [ci]
-    lib.loam_k2_blocks.restype = ci
     lib.loam_k4_blocks.argtypes = [ci]
     lib.loam_k4_blocks.restype = ci
     lib.loam_max_candidates.argtypes = []
     lib.loam_max_candidates.restype = ci
     lib.loam_fit_and_linearize_merged.argtypes = [
         vp, ci, vp, vp, vp, ci, ci, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp,
-        vp, vp, vp]
+        vp, vp, vp, vp]
     lib.loam_fit_and_linearize_merged.restype = ci
     lib.loam_fit_and_linearize_candidates.argtypes = [
         vp, vp, ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp]
     lib.loam_fit_and_linearize_candidates.restype = ci
     lib.loam_plane_normal_equations.argtypes = [
-        vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp]
+        vp, vp, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp]
     lib.loam_plane_normal_equations.restype = ci
     lib.loam_gn_loop_grid.argtypes = []
     lib.loam_gn_loop_grid.restype = ci

@@ -230,12 +230,18 @@ def _solve(JtJ: torch.Tensor, JtE: torch.Tensor, n_valid: torch.Tensor,
     eye = torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
     JtJ_safe = JtJ + eye * (~enough).to(JtJ.dtype)
     if degen_per_row > 0:
-        w_eig, V = torch.linalg.eigh(JtJ_safe)
-        y = V.T @ (-JtE)
-        floor = degen_per_row * n_valid.to(JtJ.dtype) * enough.to(JtJ.dtype)
+        # the eigenbasis in float64: an f32 eigh keeps the weak eigenvalues
+        # only to eps * |JtJ| (about 1e-4 of them on a scan's system), which
+        # moved a step by up to 5.65e-05 m where K3's Jacobi sweep erred
+        # 5.2e-08 m at most (tools/gn_loop_gap.py --guard); the step is
+        # rounded to f32 once
+        A, b = JtJ_safe.double(), JtE.double()
+        w_eig, V = torch.linalg.eigh(A)
+        y = V.T @ (-b)
+        floor = degen_per_row * n_valid.double() * enough.double()
         strong = w_eig > floor
-        return V @ torch.where(strong, y / torch.clamp(w_eig, min=1e-12),
-                               torch.zeros_like(y))
+        return (V @ torch.where(strong, y / torch.clamp(w_eig, min=1e-12),
+                                torch.zeros_like(y))).to(JtJ.dtype)
     return torch.linalg.solve(JtJ_safe, -JtE)
 
 

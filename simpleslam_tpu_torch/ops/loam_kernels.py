@@ -7,10 +7,15 @@ The kernels replace the Pallas TPU kernel
 - K1 ``fit_and_linearize_merged``: the whole TPU kernel with the merged-row
   gather folded in — per query, read one int16 merged row, pick the 5
   nearest candidates, fit and gate the plane, and reduce J^T J, J^T e and
-  n_valid; also returns the plane set. Bound on the card: Q scattered
-  1,152 B row reads plus per-query selection work.
+  n_valid; also returns the plane set. One launch on K3's layout with K3's
+  code (a K1 phase, one thread per query for the plane fit, the block
+  partial and the grid sum in double in K3's fixed order, the last block
+  adding them). Bound on the card: the valid queries' scattered 1,152 B row
+  reads.
 - K2 ``plane_normal_equations``: the TPU kernel's second half against a
-  frozen plane set. Bound on the card: launch overhead and a (Q, 6) stream.
+  frozen plane set, one thread per query, on the same layout with the same
+  sums: one launch. Bound on the card: a (Q, 10)-float stream, below the
+  launch's own floor. ``native.k2_host`` runs its body on the host.
 - K3 ``gn_loop_fused``: a scan's whole Gauss-Newton registration in one
   cooperative launch, with K1's and K2's bodies as its phases and the 6x6
   solve, the pose update and the loop tests (``csrc/gn_step.h``) between
@@ -141,10 +146,18 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
 
 
-def _outputs(dev: torch.device):
-    return (torch.empty((6, 6), dtype=torch.float32, device=dev),
-            torch.empty((6,), dtype=torch.float32, device=dev),
-            torch.empty((), dtype=torch.int32, device=dev))
+def _outputs(dev: torch.device, n_q: int = 0):
+    """J^T J (6, 6), J^T e (6,), n_valid () int32 and, for ``n_q`` queries, a
+    plane set's centroid (Q, 3), normal (Q, 3) and ok (Q,): views of one new
+    device buffer."""
+    n_f = 42 + 6 * n_q
+    buf = torch.empty((4 * n_f + 4 + n_q,), dtype=torch.uint8, device=dev)
+    f = buf[:4 * n_f].view(torch.float32)
+    return (f[:36].view(6, 6), f[36:42],
+            buf[4 * n_f:4 * n_f + 4].view(torch.int32)[0],
+            Planes(f[42:42 + 3 * n_q].view(n_q, 3),
+                   f[42 + 3 * n_q:].view(n_q, 3),
+                   buf[4 * n_f + 4:].view(torch.bool)))
 
 
 def _check_map(vm: MergedDenseVoxelMap, lib, dev) -> int:
@@ -185,28 +198,29 @@ def fit_and_linearize_merged(vm: MergedDenseVoxelMap, p_map: torch.Tensor,
     _check("p_map", p_map, torch.float32, (n_q, 3), dev)
     _check("sqrt_r", sqrt_r, torch.float32, (n_q,), dev)
     _check("mask", mask, torch.bool, (n_q,), dev)
-    centroid = torch.empty((n_q, 3), dtype=torch.float32, device=dev)
-    normal = torch.empty((n_q, 3), dtype=torch.float32, device=dev)
-    ok = torch.empty((n_q,), dtype=torch.bool, device=dev)
-    partials = torch.empty((lib.loam_k1_blocks(n_q), 28), dtype=torch.float32,
-                           device=dev)
-    jtj, jte, nv = _outputs(dev)
-    err = lib.loam_fit_and_linearize_merged(
-        vm.rows.data_ptr(), n_cand, vm.scale.data_ptr(), vm.corner.data_ptr(),
-        vm.grid.data_ptr(), gx, gy, gz, p_map.data_ptr(), sqrt_r.data_ptr(),
-        mask.data_ptr(), n_q, centroid.data_ptr(), normal.data_ptr(),
-        ok.data_ptr(), partials.data_ptr(), jtj.data_ptr(), jte.data_ptr(),
-        nv.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        _check_smem(lib, "fit_and_linearize_merged", n_q, 0)
+        stream = _stream(dev)
+        partials, counters = _gn_workspace(lib, dev, stream)
+        jtj, jte, nv, planes = _outputs(dev, n_q)
+        err = lib.loam_fit_and_linearize_merged(
+            vm.rows.data_ptr(), n_cand, vm.scale.data_ptr(),
+            vm.corner.data_ptr(), vm.grid.data_ptr(), gx, gy, gz,
+            p_map.data_ptr(), sqrt_r.data_ptr(), mask.data_ptr(), n_q,
+            planes.centroid.data_ptr(), planes.normal.data_ptr(),
+            planes.ok.data_ptr(), partials.data_ptr(), counters.data_ptr(),
+            jtj.data_ptr(), jte.data_ptr(), nv.data_ptr(), stream)
     _raise_on(err, "fit_and_linearize_merged")
     K1_LAUNCHES += 1
-    return jtj, jte, nv, Planes(centroid, normal, ok)
+    return jtj, jte, nv, planes
 
 
 # K4's and K3's workspaces per (device, stream): K4's block partials and
 # last-block counter; K3's partial sums (two alternating buffers) and grid
-# barrier counters. Both kernels leave their counters at zero; launches on
-# one stream run in order, so they share a workspace; another stream
-# (another thread's work) gets its own.
+# barrier counters, which K1 and K2 use too (the first buffer and the first
+# counter). Every kernel leaves its counters at zero; launches on one stream
+# run in order, so they share a workspace; another stream (another thread's
+# work) gets its own.
 _k4_workspaces: dict = {}
 _gn_workspaces: dict = {}
 _ws_lock = threading.Lock()
@@ -261,23 +275,16 @@ def fit_and_linearize_candidates(cand: torch.Tensor, cand_ok: torch.Tensor,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         partials, counter = _k4_workspace(dev, stream, n_blocks)
-        # the plane set and the sums in one f32 buffer, cut into views
-        buf = torch.empty((6 * n_q + 42,), dtype=torch.float32, device=dev)
-        centroid = buf[:3 * n_q].view(n_q, 3)
-        normal = buf[3 * n_q:6 * n_q].view(n_q, 3)
-        jtj = buf[6 * n_q:6 * n_q + 36].view(6, 6)
-        jte = buf[6 * n_q + 36:]
-        ok = torch.empty((n_q,), dtype=torch.bool, device=dev)
-        nv = torch.empty((), dtype=torch.int32, device=dev)
+        jtj, jte, nv, planes = _outputs(dev, n_q)
         err = lib.loam_fit_and_linearize_candidates(
             cand.data_ptr(), cand_ok.data_ptr(), n_cand, p_map.data_ptr(),
             sqrt_r.data_ptr(), mask.data_ptr(), n_q,
-            centroid.data_ptr(), normal.data_ptr(), ok.data_ptr(),
-            partials.data_ptr(), counter.data_ptr(), jtj.data_ptr(),
-            jte.data_ptr(), nv.data_ptr(), stream)
+            planes.centroid.data_ptr(), planes.normal.data_ptr(),
+            planes.ok.data_ptr(), partials.data_ptr(), counter.data_ptr(),
+            jtj.data_ptr(), jte.data_ptr(), nv.data_ptr(), stream)
     _raise_on(err, "fit_and_linearize_candidates")
     K4_LAUNCHES += 1
-    return jtj, jte, nv, Planes(centroid, normal, ok)
+    return jtj, jte, nv, planes
 
 
 def plane_normal_equations(planes: Planes, p_map: torch.Tensor,
@@ -299,14 +306,15 @@ def plane_normal_equations(planes: Planes, p_map: torch.Tensor,
     _check("planes.ok", planes.ok, torch.bool, (n_q,), dev)
     _check("p_map", p_map, torch.float32, (n_q, 3), dev)
     _check("sqrt_r", sqrt_r, torch.float32, (n_q,), dev)
-    partials = torch.empty((lib.loam_k2_blocks(n_q), 28), dtype=torch.float32,
-                           device=dev)
-    jtj, jte, nv = _outputs(dev)
-    err = lib.loam_plane_normal_equations(
-        planes.centroid.data_ptr(), planes.normal.data_ptr(),
-        planes.ok.data_ptr(), p_map.data_ptr(), sqrt_r.data_ptr(), n_q,
-        partials.data_ptr(), jtj.data_ptr(), jte.data_ptr(), nv.data_ptr(),
-        _stream(dev))
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        partials, counters = _gn_workspace(lib, dev, stream)
+        jtj, jte, nv, _ = _outputs(dev)
+        err = lib.loam_plane_normal_equations(
+            planes.centroid.data_ptr(), planes.normal.data_ptr(),
+            planes.ok.data_ptr(), p_map.data_ptr(), sqrt_r.data_ptr(), n_q,
+            partials.data_ptr(), counters.data_ptr(), jtj.data_ptr(),
+            jte.data_ptr(), nv.data_ptr(), stream)
     _raise_on(err, "plane_normal_equations")
     K2_LAUNCHES += 1
     return jtj, jte, nv
@@ -317,6 +325,16 @@ _SMEM_MAX = 232448
 
 # K3's target kinds, as loam_gn_loop_smem numbers them
 _KIND = {MergedDenseVoxelMap: 0, DenseVoxelMap: 1, VoxelMap: 2}
+
+
+def _check_smem(lib, name: str, n_q: int, kind: int) -> None:
+    """Refuse ``n_q`` queries where K3's layout on a target of ``kind``
+    needs more shared memory than a block has (K1 is K3's layout on the
+    merged map)."""
+    smem = lib.loam_gn_loop_smem(n_q, kind)
+    if not 0 <= smem <= _SMEM_MAX:
+        raise ValueError(f"{name}: {n_q} queries need {smem} bytes of shared "
+                         f"memory per block (limit {_SMEM_MAX})")
 
 
 def _gn_workspace(lib, dev: torch.device, stream: int):
@@ -411,10 +429,7 @@ def gn_loop_fused(xyz: torch.Tensor, mask: torch.Tensor, vm,
     _check("mask", mask, torch.bool, (n_q,), dev)
     _check("init_pose", init_pose, torch.float32, (4, 4), dev)
     with torch.cuda.device(dev):
-        smem = lib.loam_gn_loop_smem(n_q, kind)
-        if not 0 <= smem <= _SMEM_MAX:
-            raise ValueError(f"gn_loop_fused: {n_q} queries need {smem} bytes "
-                             f"of shared memory per block (limit {_SMEM_MAX})")
+        _check_smem(lib, "gn_loop_fused", n_q, kind)
         stream = _stream(dev)
         partials, counters = _gn_workspace(lib, dev, stream)
         out = torch.empty((GN_ROW,), dtype=torch.float32, device=dev)

@@ -14,7 +14,8 @@ done (converged, starved, or out of iterations) passes through the step
 untouched. The streamed batch runs the step ``max_iters`` times with no host
 read; the per-scan paths and the loop-closure verifier run it until done,
 reading the stop test once per iteration. Both give the same result bit for
-bit, with the iterates of the reference's loop.
+bit, with the iterates of the reference's loop, which a rejected step under
+epsilon ends here and not there (``_step``; ROADMAP section 3, F7).
 """
 
 from __future__ import annotations
@@ -165,9 +166,9 @@ def _step(lin, max_iters: int, eps: float, state: _State) -> _State:
     """One damped GN iteration with a carried linearization: the trial
     evaluation is the next iteration's linearization when accepted (chi2
     drops), else the carried one stays; lambda halves on accept and grows 8x
-    on reject. Converged on a small step or a < 1e-4 relative chi2 gain; a
-    starved linearization (< 6 rows) stops the loop. A done state comes back
-    untouched."""
+    on reject. Converged on a small step, taken or not, or a < 1e-4 relative
+    chi2 gain; a starved linearization (< 6 rows) stops the loop. A done
+    state comes back untouched."""
     pose, it, conv, lam, H, g, cost, n = state
     done = _done(state, max_iters)
     diag = torch.clamp(torch.diagonal(H), min=1e-6)
@@ -180,10 +181,14 @@ def _step(lin, max_iters: int, eps: float, state: _State) -> _State:
     keep = done | ~improved              # the carried linearization stays
     n_next = torch.where(keep, n, n2)
     # step-norm epsilon OR a chi2 plateau (in f32 the step norm floors
-    # near 1e-4, so the LC epsilon alone would always run 100 steps)
+    # near 1e-4, so the LC epsilon alone would always run 100 steps). A
+    # rejected step under epsilon ends the loop too, as in LsqRegistration's
+    # LM (a rejected delta that is_converged returns converged): at the f32
+    # floor every trial can be rejected, lambda then only grows to its cap,
+    # where the same trial repeats, and the reference's rule (improved and
+    # small) runs out the budget as "not converged"
     plateau = improved & (gain < 1e-4 * cost2)
-    conv_next = ((improved & (torch.linalg.norm(dx) < eps)) | plateau
-                 | (n_next < 6))
+    conv_next = ((torch.linalg.norm(dx) < eps) | plateau | (n_next < 6))
     lam_next = torch.where(improved, torch.clamp(lam * 0.5, min=1e-8),
                            torch.clamp(lam * 8.0, max=1e6))
     return _State(torch.where(keep, pose, new_pose),

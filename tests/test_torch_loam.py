@@ -2,9 +2,10 @@
 the JAX package, on the same merged voxel map (built by the JAX package and
 handed over as numpy) and the same queries.
 
-Every port variant — the explicit-candidate functions, and the plain
-versions of the CUDA kernels K1 (``fit_and_linearize_merged``) and K2
-(``plane_normal_equations``) — is held against both
+Every port variant — the explicit-candidate functions, the plain versions
+of the CUDA kernels K1 (``fit_and_linearize_merged``) and K2
+(``plane_normal_equations``), and K2's body compiled for the host with its
+fixed-order double sums (``native.k2_host``) — is held against both
 ``loam.normal_equations_from_candidates`` and the Pallas TPU kernel itself
 (``loam_pallas.normal_equations_t`` in interpret mode), with the tolerances
 of tests/test_loam_pallas.py: J^T J within 2e-5 max|J^T J|, J^T e within
@@ -112,9 +113,14 @@ def _port(scene, variant, which):
         return tloam.plane_normal_equations(tds, planes, pose)
     if variant == "k1_plain":
         return lk.fit_and_linearize_merged(tvm, p_map, sqrt_r, tds.mask)[:3]
-    # k2_plain: planes fit at this pose by K1's plain version, then K2's
+    # planes fit at this pose by K1's plain version, then K2's plain version
+    # or K2's body on the host on the card's grid (132 blocks)
     planes = lk.fit_and_linearize_merged(tvm, p_map, sqrt_r, tds.mask)[3]
-    return lk.plane_normal_equations(planes, p_map, sqrt_r)
+    if variant == "k2_plain":
+        return lk.plane_normal_equations(planes, p_map, sqrt_r)
+    jtj, jte, nv = native.k2_host(*(t.numpy() for t in planes),
+                                  p_map.numpy(), sqrt_r.numpy(), 132)
+    return torch.tensor(jtj), torch.tensor(jte), torch.tensor(nv)
 
 
 def _assert_close(got, ref):
@@ -128,7 +134,7 @@ def _assert_close(got, ref):
 @pytest.mark.parametrize("ref", ["jnp", "pallas"])
 @pytest.mark.parametrize("which", ["on-pose", "perturbed"])
 @pytest.mark.parametrize("variant", ["from_candidates", "fit_then_rows",
-                                     "k1_plain", "k2_plain"])
+                                     "k1_plain", "k2_plain", "k2_host"])
 def test_normal_equations_parity(scene, references, variant, which, ref):
     _assert_close(_port(scene, variant, which), references[which, ref])
 
@@ -408,6 +414,32 @@ def test_gn_step_matches_torch(scene, case):
         np.testing.assert_array_equal(got[1], pose)
 
 
+@pytest.mark.parametrize("case", ["scene", "near-singular"])
+def test_guarded_solve_is_the_float64_step(scene, case):
+    """With the degeneracy guard the stepwise loop takes its eigenbasis in
+    float64, so its step is the float64 step rounded once, within 1e-6 of
+    |dx|, on the scene's ill-conditioned system and on one squashed to a
+    corridor. An f32 eigh keeps the weak eigenvalues only to eps * |JtJ|
+    and misses that step by about 5e-5 of |dx| here (1.5e-05 m of 0.31 m);
+    K3's Jacobi sweep (``csrc/gn_step.h``), which it is held against on the
+    card, missed it by 5.2e-08 m at most on the streamed path's systems
+    that ``tools/gn_loop_gap.py --guard`` traces."""
+    pose = _start_pose(scene)
+    JtJ, JtE, n_valid = _scene_equations(scene, pose)
+    if case == "near-singular":
+        w, V = torch.linalg.eigh(JtJ.double())
+        w = w.clone()
+        w[0] = w[-1] * 1e-6
+        JtJ = ((V * w) @ V.T).float()
+        JtJ = 0.5 * (JtJ + JtJ.T)
+    degen = tloam.DEGEN_EIGEN_PER_ROW
+    dx = tloam._solve(JtJ, JtE, n_valid, n_valid >= tloam.MIN_VALID_ROWS,
+                      degen)
+    assert dx.dtype == torch.float32
+    truth = _solve_f64(JtJ, JtE, int(n_valid), degen)
+    assert np.abs(dx.numpy() - truth).max() <= 1e-6 * np.linalg.norm(truth)
+
+
 def test_gn_step_zero_pivot_is_non_finite_not_an_error():
     """A singular system gives a non-finite step (the streamed batch's NaN
     guard takes it), where ``torch.linalg.solve`` raises."""
@@ -534,6 +566,65 @@ def test_kernels_match_plain(cuda_scene, which):
     k2 = lk.plane_normal_equations(k1[3], p_map, sqrt_r)
     p2 = lk.plane_normal_equations_plain(k1[3], p_map, sqrt_r)
     _assert_close([t.cpu() for t in k2], [t.cpu() for t in p2])
+
+
+def _hand_launches(fn) -> int:
+    """Hand-kernel launches of one call of ``fn`` on the card, as
+    ``chip_smoke.py``'s ``call_device`` counts them (PyTorch's own fills and
+    copies apart); the script is loaded by path from the repository root."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    t = cs.call_device(fn)
+    assert t is not None, "the profiler saw no hand kernel"
+    return t.launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all", "Q=5", "Q=131", "all-masked"])
+def test_k1_k2_one_launch_each(cuda_scene, case):
+    """K1 and K2 are one launch per wrapper call (no second pass over the
+    block partials) on the card's grid of one block per SM, also with fewer
+    queries than blocks and with every query masked out; two calls
+    bit-identical; n_valid and the plane gates equal to the plain versions',
+    the sums within the tolerances."""
+    vm, src, pose = cuda_scene
+    p_map = tgeo.transform_points(pose, src.xyz)
+    sqrt_r = tloam.source_sqrt_range(src)
+    mask = src.mask
+    if case.startswith("Q="):
+        n = int(case[2:])
+        p_map, sqrt_r, mask = p_map[:n], sqrt_r[:n], mask[:n]
+    elif case == "all-masked":
+        mask = torch.zeros_like(mask)
+    k1 = lk.fit_and_linearize_merged(vm, p_map, sqrt_r, mask)
+    again = lk.fit_and_linearize_merged(vm, p_map, sqrt_r, mask)
+    assert all(torch.equal(a, b) for a, b in zip((*k1[:3], *k1[3]),
+                                                 (*again[:3], *again[3])))
+    p1 = lk.fit_and_linearize_merged_plain(vm, p_map, sqrt_r, mask)
+    assert torch.equal(k1[3].ok, p1[3].ok)
+    k2 = lk.plane_normal_equations(k1[3], p_map, sqrt_r)
+    assert all(torch.equal(a, b) for a, b in zip(
+        k2, lk.plane_normal_equations(k1[3], p_map, sqrt_r)))
+    p2 = lk.plane_normal_equations_plain(k1[3], p_map, sqrt_r)
+    for got, ref in ((k1[:3], p1[:3]), (k2, p2)):
+        JtJ, JtE = ref[0].cpu().numpy(), ref[1].cpu().numpy()
+        assert int(got[2]) == int(ref[2])
+        np.testing.assert_allclose(got[0].cpu().numpy(), JtJ,
+                                   atol=2e-5 * np.abs(JtJ).max())
+        np.testing.assert_allclose(got[1].cpu().numpy(), JtE,
+                                   atol=5e-4 * np.abs(JtE).max())
+    if case == "all-masked":
+        assert int(k1[2]) == 0 and not k1[3].centroid.any()
+    assert _hand_launches(lambda: lk.fit_and_linearize_merged(
+        vm, p_map, sqrt_r, mask)) == 1
+    assert _hand_launches(lambda: lk.plane_normal_equations(
+        k1[3], p_map, sqrt_r)) == 1
 
 
 def _to(vm, dev):

@@ -282,6 +282,33 @@ def test_vgicp_fitness_discriminates(fixture, vgicp_targets):
     assert float(bad) > 3 * float(good)
 
 
+@pytest.mark.parametrize("grad", [1e-6, 1.0], ids=["tiny", "large"])
+def test_vgicp_rejected_step_under_epsilon_converges(grad):
+    """A damped GN step under epsilon ends the VGICP loop even when it does
+    not lower chi2, as LsqRegistration's LM returns converged on a rejected
+    delta that is_converged: at the f32 floor every trial can be rejected,
+    lambda then only grows, and a loop that needed the step to be taken ran
+    out its budget as not converged. A rejected step keeps the pose and the
+    carried linearization and raises lambda; one over epsilon goes on."""
+    H = torch.eye(6) * 1e3
+    g = torch.full((6,), grad)
+    cost = torch.tensor(10.0)
+    pose = torch.eye(4)
+
+    def lin(p):   # every trial is rejected: chi2 does not drop
+        return H, g, cost, torch.tensor(100, dtype=torch.int32)
+
+    state = tvgicp._State(pose, torch.tensor(0, dtype=torch.int32),
+                          torch.tensor(False), torch.tensor(1e-6), H, g, cost,
+                          torch.tensor(100, dtype=torch.int32))
+    nxt = tvgicp._step(lin, tvgicp.LC_MAX_ITERS, tvgicp.LC_CONVERGE_EPS,
+                       state)
+    assert bool(nxt.conv) == (grad < 1e-3)
+    assert int(nxt.iters) == 1 and torch.equal(nxt.pose, pose)
+    assert float(nxt.lam) == pytest.approx(8e-6)
+    assert torch.equal(nxt.cost, cost) and torch.equal(nxt.H, H)
+
+
 @pytest.mark.parametrize("kind", ["ndt", "vgicp", "vgicp_lc"])
 def test_early_exit_loop_equals_fixed_count_loop(fixture, ndt_targets,
                                                      vgicp_targets, kind):

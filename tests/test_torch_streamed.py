@@ -331,14 +331,16 @@ def lc_run():
             world, n_scans=N_SCANS, seed=2, radius=RADIUS, speed=SPEED,
             n_az=720, n_el=12, scan_noise=0.03))
     JParams.load(LC_CFG)
-    jax_result = j_run_streamed(japp.SlamSystem(), streams)
+    jax_system = japp.SlamSystem()
+    jax_result = j_run_streamed(jax_system, streams)
     JParams.reset()
     system = _port(LC_CFG)
     result = tst.run_streamed(system, streams)
     TParams.reset()
     print(f"lc_courtyard ATE: port {_ate(streams, result):.4f} m, JAX "
-          f"package {_ate(streams, jax_result):.4f} m; port LC edges "
-          f"{system.backend.n_lc_edges}")
+          f"package {_ate(streams, jax_result):.4f} m; LC edges: port "
+          f"{system.backend.n_lc_edges}, JAX package "
+          f"{jax_system.backend.n_lc_edges}")
     return streams, system, result
 
 

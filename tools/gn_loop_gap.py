@@ -2,6 +2,7 @@
 
     python3 tools/gn_loop_gap.py [--configs full,courtyard] [--ranks 2]
                                  [--out FILE] [--device cuda] [--scans 150]
+    python3 tools/gn_loop_gap.py --guard N
 
 The single-rank pipeline registers every scan with one launch of K3
 (``loam.gn_loop``); a mesh of several ranks registers through the stepwise
@@ -35,6 +36,19 @@ leaves one loop a step of up to 5 mm short of the other). The JSON of it
 all goes to ``--out``; the last line of stdout is its summary.
 ``--device cpu`` rehearses it on the CPU (where both loops are the plain
 stepwise loop; use few ``--scans``).
+
+``--guard N`` shows instead where K3 and the stepwise loop part with the
+degeneracy guard on: on the streamed full path's last target and last 48
+scans as phase 6 preps them, it registers every scan from its recorded pose
+and from the 0.25 m offset three ways: K3 (``loam.gn_loop``), the stepwise
+loop as it is (its guarded solve takes the eigenbasis in float64) and the
+stepwise loop with the guarded solve in float32 (an f32 ``eigh``, the JAX
+package's precision). It prints the largest gap of each stepwise variant to
+K3, and for the ``N`` registrations where the f32 one parts furthest, each
+iteration's system as the stepwise loop met it: the eigenvalues (float64),
+the guard's floor, and how far the f32 ``eigh`` step, the float64 step
+rounded to f32 and K3's own step (``csrc/gn_step.h``, its Jacobi sweep,
+built for the host: ``native.gn_step``) lie from the float64 step.
 """
 
 from __future__ import annotations
@@ -260,6 +274,106 @@ def probe(cfg: dict, streams, sync_every: int, i: int) -> dict:
                                                          - dx_b[3:]))}
 
 
+def solve_f32(JtJ, JtE, n_valid, enough, degen_per_row):
+    """``loam._solve`` with the guard's eigenbasis in float32."""
+    eye = torch.eye(6, dtype=JtJ.dtype, device=JtJ.device)
+    JtJ_safe = JtJ + eye * (~enough).to(JtJ.dtype)
+    w, V = torch.linalg.eigh(JtJ_safe)
+    y = V.T @ (-JtE)
+    floor = degen_per_row * n_valid.to(JtJ.dtype) * enough.to(JtJ.dtype)
+    return V @ torch.where(w > floor, y / torch.clamp(w, min=1e-12),
+                           torch.zeros_like(y))
+
+
+def guard_trace(n_worst: int) -> int:
+    """``--guard``: see the module's docstring."""
+    from simpleslam_tpu_torch import native
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.pipeline import simulate as sim
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    card = cs.environment()
+    cs.build()
+    streams = sim.simulate_sequence(sim.make_world(seed=0), n_scans=150,
+                                    seed=0, n_az=1800, n_el=16)
+    _, system, result = cs.streamed_run(
+        "streamed full (bench full config)", cs.BENCH_FULL, streams, card,
+        prewarm=True, probe_scans=0)
+    dev = torch.device("cuda")
+    n = len(streams.scan_stamps)
+    idx = list(range(max(1, n - 1 - cs.N_FUSED_SCANS), n - 1))
+    rows, _ = cs.prep_scans(system, streams, idx,
+                            int(result.extras["scan_capacity"]))
+    rows = torch.from_numpy(rows).to(dev)
+    vm = system.map_manager.get_target()
+    f64_solve = loam._solve
+
+    def gap(a, b) -> float:
+        pa, pb = (x.pose.cpu().numpy().astype(np.float64) for x in (a, b))
+        return float(np.linalg.norm(pa[:3, 3] - pb[:3, 3]))
+
+    cases, worst = [], {"f64": 0.0, "f32": 0.0}
+    for k, j in enumerate(idx):
+        src = streamed.upload_cloud(rows[k])
+        pose = torch.tensor(result.poses[j].astype(np.float32), device=dev)
+        for tag, start in (("recorded pose", pose),
+                           ("0.25 m offset", cs.offset_pose(pose))):
+            k3 = loam.gn_loop(src, vm, start, degen_per_row=cs.DEGEN)
+            g64 = gap(k3, loam.gn_loop_stepwise(src, vm, start,
+                                                degen_per_row=cs.DEGEN))
+            loam._solve = lambda *a: solve_f32(*a)
+            try:
+                g32 = gap(k3, loam.gn_loop_stepwise(src, vm, start,
+                                                    degen_per_row=cs.DEGEN))
+            finally:
+                loam._solve = f64_solve
+            worst = {"f64": max(worst["f64"], g64),
+                     "f32": max(worst["f32"], g32)}
+            cases.append((g32, g64, j, tag, src, start))
+    print(f"guard on, {len(cases)} registrations of scans {idx[0]}-{idx[-1]}:"
+          f" the stepwise loop lies at most {worst['f64']:.3e} m from K3 "
+          f"with its float64 guarded solve, {worst['f32']:.3e} m with an f32 "
+          f"eigh ({card})")
+    for g32, g64, j, tag, src, start in sorted(
+            cases, key=lambda c: -c[0])[:n_worst]:
+        systems = []
+
+        def tracing(JtJ, JtE, n_valid, enough, degen):
+            systems.append((JtJ.double().cpu().numpy(),
+                            JtE.double().cpu().numpy(), int(n_valid),
+                            bool(enough)))
+            return f64_solve(JtJ, JtE, n_valid, enough, degen)
+
+        loam._solve = tracing
+        try:
+            loam.gn_loop_stepwise(src, vm, start, degen_per_row=cs.DEGEN)
+        finally:
+            loam._solve = f64_solve
+        print(f"scan {j} from the {tag}: K3 to the stepwise loop "
+              f"{g64:.3e} m (f32 eigh: {g32:.3e} m)")
+        for it, (A, e, nv, enough) in enumerate(systems):
+            floor = cs.DEGEN * nv * enough
+            w, V = np.linalg.eigh(A)
+            y = V.T @ (-e)
+            dx64 = V @ np.where(w > floor, y / np.maximum(w, 1e-12), 0.0)
+            t = [torch.tensor(x, device=dev) for x in (
+                A.astype(np.float32), e.astype(np.float32))]
+            dx32 = solve_f32(t[0], t[1], torch.tensor(nv, device=dev),
+                             torch.tensor(enough, device=dev),
+                             cs.DEGEN).cpu().numpy()
+            dxr = dx64.astype(np.float32)
+            jac = native.gn_step(A.astype(np.float32), e.astype(np.float32),
+                                 nv, cs.DEGEN, np.eye(4, dtype=np.float32),
+                                 np.eye(4, dtype=np.float32), 1.0)[0]
+            print(f"  iteration {it}: {nv} rows, floor {floor:.2f}, "
+                  f"eigenvalues {np.array2string(w, precision=1)}; |dx| "
+                  f"{np.abs(dx64).max():.3e}, off the float64 step: f32 eigh "
+                  f"{np.abs(dx32 - dx64).max():.3e}, float64 rounded "
+                  f"{np.abs(dxr - dx64).max():.3e}, K3's Jacobi "
+                  f"{np.abs(jac - dx64).max():.3e} ({card})")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--configs", default="full,courtyard")
@@ -268,7 +382,13 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--scans", type=int, default=150,
                     help="scans of the full config's sequence")
+    ap.add_argument("--guard", type=int, default=0, metavar="N",
+                    help="trace the degeneracy guard's solve instead, for "
+                         "the N registrations where an f32 eigh parts "
+                         "furthest")
     args = ap.parse_args()
+    if args.guard:
+        return guard_trace(args.guard)
     global DEVICE
     DEVICE = args.device
     if DEVICE == "cuda" and not torch.cuda.is_available():

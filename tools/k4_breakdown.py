@@ -76,7 +76,8 @@ def build_libraries(variants, csrc=None, logs=None):
         lib = ctypes.CDLL(out)
         _build._bind(lib)
         for flag, fn in (("-DLOAM_K4_CLOCKS", "loam_k4_set_clocks"),
-                         ("-DLOAM_K3_CLOCKS", "loam_k3_set_clocks")):
+                         ("-DLOAM_K3_CLOCKS", "loam_k3_set_clocks"),
+                         ("-DLOAM_K1_CLOCKS", "loam_k1_set_clocks")):
             if flag in extra:
                 getattr(lib, fn).argtypes = [ctypes.c_void_p]
                 getattr(lib, fn).restype = ctypes.c_int

@@ -8,7 +8,12 @@ checkout of the repository, e.g. a parent commit unpacked with ``git
 archive``), builds its kernels there, and records on the inputs of
 ``chip_smoke.py``:
 - K1's outputs on the merged map of phase 3 (the simulated submap and scan)
-  at the on-pose and the 0.25 m offset placement;
+  at the on-pose and the 0.25 m offset placement, and K2's on the on-pose
+  planes at the offset;
+- the device time of one K1 and one K2 wrapper call over all its launches,
+  its launches and the wrapper's CUDA-event median, on phase 3's scan and on
+  the streamed full path's last scan (``call_device`` of this repository's
+  ``chip_smoke.py``);
 - K3's result rows on phase 3's submap as a merged map, a dense map and a
   sorted table (``tools/k3_breakdown.py`` builds them), from the on-pose, a
   small-offset and the 0.25 m offset start, degeneracy guard off and on;
@@ -29,12 +34,15 @@ archive``), builds its kernels there, and records on the inputs of
 Run each measurement in its own process (two trees cannot share one), in
 turns: parent, change, change, parent. ``compare`` lists the device times
 of every file side by side with the card's name and power limit; says
-whether K1's and K4's outputs of every file repeat those of the first bit
-for bit, and whether files of the same tree repeat each other's K3 rows;
-and prints the largest per-registration gap between each file's K3 rows and
-the first file's (pose, and whether the counts agree). It fails where K1 or
-K4 differ, where a tree does not repeat itself, or where a gap passes
-1e-4 m / 1e-5 rad.
+whether K1's plane set (centroid, normal, ok) and K4's outputs of every
+file repeat those of the first bit for bit, whether K1's and K2's sums lie
+within the op tolerances of the first file's (J^T J within 2e-5 max|J^T J|,
+J^T e within 5e-4 max|J^T e|, n_valid equal: the order of the sums may
+differ between trees), whether every file's K3 rows repeat the first
+file's bit for bit and those of the same tree each other's; and prints the
+largest per-registration gap between each file's K3 rows and the first
+file's (pose, and whether the counts agree). It fails where any of those
+does not hold.
 """
 
 from __future__ import annotations
@@ -47,7 +55,9 @@ import numpy as np
 TOOLS = os.path.dirname(os.path.abspath(__file__))
 POSE_T_TOL = 1e-4   # metres: K3 against the stepwise loop (chip_smoke.py)
 POSE_R_TOL = 1e-5   # radians
+JTJ_RTOL, JTE_RTOL = 2e-5, 5e-4   # chip_smoke.py's op tolerances
 KINDS = ("merged", "dense", "table")
+N_SUMS = 43         # J^T J (36), J^T e (6), n_valid: then the plane set
 
 
 def phase6_inputs(path: str, cs, card: str, dev):
@@ -97,6 +107,7 @@ def measure(tree: str, out: str, inputs: str) -> None:
     import torch
 
     import chip_smoke as cs
+    from k1_breakdown import this_smoke
     from k3_breakdown import phase3_targets
     from simpleslam_tpu_torch.ops import geometry as geo
     from simpleslam_tpu_torch.ops import loam
@@ -107,6 +118,7 @@ def measure(tree: str, out: str, inputs: str) -> None:
         raise SystemExit(f"measure: did not import from {tree}")
     card = cs.environment()
     cs.build()
+    call_device = this_smoke().call_device
     dev = torch.device("cuda")
 
     def k3_rows(src, vm, pose, starts=("pose", "small", "offset")):
@@ -132,6 +144,24 @@ def measure(tree: str, out: str, inputs: str) -> None:
                     src.xyz, src.mask, vm, start, loam.MAX_ITERS, 0.0))
             k3_dev[f"{tag} {start_tag}"] = np.nan if ms is None else ms
 
+    calls = {}
+
+    def k1_k2_calls(tag, vm, src, sqrt_r, p_on, p_off):
+        """K1's and K2's device time per wrapper call, launches, PyTorch's
+        own device time per call and the wrapper's median."""
+        planes = lk.fit_and_linearize_merged(vm, p_on, sqrt_r, src.mask)[3]
+        for name, fn in (
+                ("K1", lambda: lk.fit_and_linearize_merged(vm, p_on, sqrt_r,
+                                                           src.mask)),
+                ("K2", lambda: lk.plane_normal_equations(planes, p_off,
+                                                         sqrt_r))):
+            c = call_device(fn)
+            calls[f"{name} {tag}"] = (
+                [np.nan] * 3 if c is None else [c[0], c[1], c[3]]) + [
+                    cs.time_ms(fn)]
+            print(f"{name} on the {tag} ({tree}): {calls[f'{name} {tag}']} "
+                  f"(device ms, launches, PyTorch's ms, wrapper ms; {card})")
+
     # phase 3's inputs
     vm, src, sqrt_r, p_on, p_off, pose = cs.kernel_inputs(dev)
     k1 = []
@@ -141,6 +171,11 @@ def measure(tree: str, out: str, inputs: str) -> None:
         k1.append(torch.cat([jtj.flatten(), jte, nv.float()[None],
                              pl.centroid.flatten(), pl.normal.flatten(),
                              pl.ok.float()]))
+        if p_map is p_on:
+            planes = pl
+    jtj, jte, nv = lk.plane_normal_equations(planes, p_off, sqrt_r)
+    k2 = torch.cat([jtj.flatten(), jte, nv.float()[None]])
+    k1_k2_calls("phase 3 scan", vm, src, sqrt_r, p_on, p_off)
     del vm
     targets3, src3, pose3 = phase3_targets(dev)
     rows3 = {}
@@ -166,6 +201,8 @@ def measure(tree: str, out: str, inputs: str) -> None:
     # phase 12's inputs: K4 on the last scan's candidates
     p_map = geo.transform_points(pose_n, src.xyz)
     sqrt_r = loam.source_sqrt_range(src)
+    k1_k2_calls("streamed full last scan", targets6["merged"], src, sqrt_r,
+                p_map, geo.transform_points(cs.offset_pose(pose_n), src.xyz))
     k4_dev, k4_out = {}, {}
     for kind in ("dense", "table"):
         cand, ok = loam.gather_candidates_at(targets6[kind], p_map, src.mask)
@@ -183,7 +220,9 @@ def measure(tree: str, out: str, inputs: str) -> None:
               f"{k4_dev[kind]} ms ({card})")
     for key, ms in k3_dev.items():
         print(f"K3 on the {key} ({tree}): device {ms} ms ({card})")
-    np.savez(out, k1=torch.stack(k1).cpu().numpy(),
+    np.savez(out, k1=torch.stack(k1).cpu().numpy(), k2=k2.cpu().numpy(),
+             call_keys=np.array(list(calls)),
+             calls=np.array(list(calls.values()), dtype=np.float64),
              **{f"rows3_{k}": r.cpu().numpy() for k, r in rows3.items()},
              **{f"rows6_{k}": r.cpu().numpy() for k, r in rows6.items()},
              **{f"k4_{k}": v for k, v in k4_out.items()},
@@ -237,29 +276,56 @@ def compare(paths) -> int:
             vals = "  ".join(f"{1e3 * float(r[val_name][i]):8.2f}"
                              for r in runs)
             print(f"  {what} {key:<28} {vals}")
+    print("K1 and K2 per wrapper call, in the order of the files: device us "
+          "over all hand-kernel launches / launches / PyTorch's own device us "
+          "(fills of new tensors) / wrapper ms (CUDA events):")
+    for i, key in enumerate(ref["call_keys"]):
+        vals = "  ".join(f"{1e3 * c[0]:.2f} / {c[1]:g} / {1e3 * c[2]:.2f} / "
+                         f"{c[3]:.4f}" for c in (r["calls"][i] for r in runs))
+        print(f"  {key:<32} {vals}")
     bad = 0
     rows = [k for k in ref if k.startswith("rows")]
     k4 = [k for k in ref if k.startswith("k4_") and "dev" not in k]
     for p, name, r in zip(paths, names, runs):
-        same = {k: bool(np.array_equal(ref[k], r[k])) for k in ["k1", *k4]}
+        same = {k: bool(np.array_equal(ref[k], r[k])) for k in k4}
+        same["k1 plane set"] = bool(np.array_equal(ref["k1"][:, N_SUMS:],
+                                                   r["k1"][:, N_SUMS:]))
+        sums = {"k1": all(sums_close(a[:N_SUMS], b[:N_SUMS])
+                          for a, b in zip(r["k1"], ref["k1"])),
+                "k2": sums_close(r["k2"], ref["k2"])}
         gaps = {k: row_gap(r[k], ref[k]) for k in rows}
         twin = next((i for i, n in enumerate(names) if n == name), None)
         repeats = all(np.array_equal(runs[twin][k], r[k]) for k in rows)
+        rows_same = all(np.array_equal(ref[k], r[k]) for k in rows)
         worst_t = max(g[0] for g in gaps.values())
         worst_r = max(g[1] for g in gaps.values())
         differ = sum(g[2] for g in gaps.values())
         n_reg = sum(len(r[k]) for k in rows)
         print(f"{p} ({name}): bit-identical to {paths[0]}: "
               + ", ".join(f"{k} {v}" for k, v in same.items())
+              + ", K3 rows " + str(rows_same)
+              + "; sums within the op tolerances of the first file's: "
+              + ", ".join(f"{k} {v}" for k, v in sums.items())
               + f"; K3 rows repeat the first file of this tree: {repeats}; "
               f"largest per-registration gap to {paths[0]}: {worst_t:.3e} m /"
               f" {worst_r:.3e} rad over {n_reg} registrations ("
               + ", ".join(f"{k} {g[0]:.3e} m" for k, g in gaps.items())
               + f"), counts differ in {differ} ({r['card']})")
-        bad += not all(same.values()) or not repeats \
+        bad += not all(same.values()) or not all(sums.values()) \
+            or not repeats or not rows_same \
             or worst_t > POSE_T_TOL or worst_r > POSE_R_TOL \
             or differ > 0.01 * n_reg
     return 1 if bad else 0
+
+
+def sums_close(a: np.ndarray, b: np.ndarray) -> bool:
+    """J^T J (36), J^T e (6) and n_valid of ``a`` within the op tolerances
+    of ``b``'s, n_valid equal."""
+    return bool(a[42] == b[42]
+                and np.abs(a[:36] - b[:36]).max()
+                <= JTJ_RTOL * np.abs(b[:36]).max()
+                and np.abs(a[36:42] - b[36:42]).max()
+                <= JTE_RTOL * np.abs(b[36:42]).max())
 
 
 def main() -> int:
