@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--scans N] [--kernels-only] [--only PATHS]
 
-Drives ``simpleslam_tpu_torch`` (never jax) through twenty-two phases and
+Drives ``simpleslam_tpu_torch`` (never jax) through twenty-three phases and
 fails with a nonzero exit on the first problem:
 
 1. environment: card name and power limit (nvidia-smi), torch / CUDA
@@ -158,7 +158,15 @@ fails with a nonzero exit on the first problem:
    18, 19 and 21 hold K3 to one launch per registration with no plain
    version, and run one batch body under sync debugging and the profiler,
    as 5-7 do; 18-21 run before 17, which runs last;
-22. the result: a JSON line of the kernels K1-K4 (with the launches of each
+22. the single-device entry hook (``simpleslam_tpu_torch.entry``, the
+   port's ``__graft_entry__.entry``; right after 3): ``fn(*args)`` on the
+   sorted table and on the dense map of its plane-world fixture, each call
+   exactly one K3 launch with no plain, stepwise, K1, K2 or K4 call; the
+   pose within 1e-5 m / 1e-6 rad of ``gn_loop_stepwise`` with equal counts
+   and within 1e-4 m / 1e-5 rad of the hook's CPU run; the wrapper time per
+   call (CUDA events), K3's device time per launch (torch.profiler, one
+   launch per call or the phase fails) and its bound;
+23. the result: a JSON line of the kernels K1-K4 (with the launches of each
    path: K3's launches, for K1 and K2 the times their bodies ran as phases
    of K3, from the recorded gathers and iterations, the K1 phases of the
    ``scan2map`` paths of 13 reading the dense map's or the table's
@@ -169,8 +177,8 @@ fails with a nonzero exit on the first problem:
    floor), the nvidia-smi line, and last a JSON line
    ``{"ok": true, "device": ...}``.
 
-``--only lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,loc,hard,graph,``
-``multilap,mesh`` (any subset) drives just the named paths of 8-21 after
+``--only entry,lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,loc,hard,``
+``graph,multilap,mesh`` (any subset) drives just the named paths of 8-22 after
 the build (a quick check
 while working on one of them; ``k4``, ``recorded`` and ``mesh`` run the
 streamed full config first, for its inputs) and prints no result line.
@@ -428,14 +436,14 @@ def events_ms(fn, n: int = 50) -> float:
     return a.elapsed_time(b) / n
 
 
-def device_activity(prof):
+def device_activity(prof, what: str):
     """(kernels, copies and fills, busy us, span us) of the device events a
-    ``torch.profiler`` run recorded; None when it saw no device event."""
+    ``torch.profiler`` run of ``what`` recorded; fails when it saw none."""
     from torch.autograd import DeviceType
 
     evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not evs:
-        return None
+        fail(f"{what}: torch.profiler saw no device event")
     copies = sum(1 for e in evs
                  if e.name.lower().startswith(("memcpy", "memset")))
     spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
@@ -1160,15 +1168,10 @@ def batch_probe(name: str, system, streams, result, sync_every: int,
                              ProfilerActivity.CUDA]) as prof:
         streamed._batch_body(*args)[1].cpu()
     wall = time.perf_counter() - t0
-    act = device_activity(prof)
+    kern, copies, busy, span = device_activity(prof, f"{name} batch body")
     line = (f"{name}: one batch body of {k} scans ran with sync debugging "
             f"set to raise (no host synchronisation before the packed read);"
             f" converged {int(rows_h[:, 16].sum())} of {k}; ")
-    if act is None:
-        print(line + "torch.profiler saw no device event: launches per scan "
-              f"and idle share not measured ({card})")
-        return
-    kern, copies, busy, span = act
     print(line + f"under torch.profiler {kern / k:.1f} kernel launches and "
           f"{copies / k:.2f} copies or fills per scan, device busy "
           f"{1e-3 * busy:.3f} ms of a {1e-3 * span:.3f} ms span: idle share "
@@ -3200,8 +3203,9 @@ def _solve_launches(g, cg_iters: int) -> int:
                              ProfilerActivity.CUDA]) as prof:
         pgo.solve(g, max_iters=1, cg_iters=cg_iters).cost.cpu()
         torch.cuda.synchronize()
-    act = device_activity(prof)
-    return None if act is None else act[0] + act[1]
+    act = device_activity(prof, f"graph: one LM iteration of {cg_iters} CG "
+                          "iterations")
+    return act[0] + act[1]
 
 
 def graph_paths(card: str) -> dict:
@@ -3233,7 +3237,7 @@ def graph_paths(card: str) -> dict:
                          - np.eye(3)).max())
     n_a = _solve_launches(g, 16)
     n_b = _solve_launches(g, 48)
-    per_cg = (None if n_a is None or n_b is None else (n_b - n_a) / 32)
+    per_cg = (n_b - n_a) / 32
     print(f"graph: K = {k}, E = {GRAPH_ARGS['e_cap']} ({GRAPH_ARGS['n_lc']} "
           f"closures), {lm} LM x {cg} CG iterations in {ms:.1f} ms per solve;"
           f" cost {cost0:.2f} -> {cost:.5f} ({cost / cost0:.3e} of the "
@@ -3267,21 +3271,15 @@ def graph_paths(card: str) -> dict:
         pgo._tables = orig
     if not np.isfinite(float(one.cost)):
         fail("graph: the LM iteration under sync debugging is not finite")
-    act = device_activity(prof)
-    if act is None:
-        print("graph: one LM iteration ran with sync debugging set to raise "
-              "(no host synchronisation after the topology read); "
-              f"torch.profiler saw no device event: idle share not measured "
-              f"({card})")
-    else:
-        kern, copies, busy, span = act
-        print(f"graph: one LM iteration of {cg} CG iterations ran with sync "
-              f"debugging set to raise (no host synchronisation after the "
-              f"topology read); under torch.profiler {kern} kernel launches "
-              f"and {copies} copies or fills, device busy {1e-3 * busy:.3f} "
-              f"ms of a {1e-3 * span:.3f} ms span: idle share "
-              f"{100 * (1 - busy / span):.1f} % (host wall {1e3 * wall:.1f} "
-              f"ms with the profiler on) ({card})")
+    kern, copies, busy, span = device_activity(prof, "graph: one LM "
+                                               "iteration")
+    print(f"graph: one LM iteration of {cg} CG iterations ran with sync "
+          f"debugging set to raise (no host synchronisation after the "
+          f"topology read); under torch.profiler {kern} kernel launches "
+          f"and {copies} copies or fills, device busy {1e-3 * busy:.3f} "
+          f"ms of a {1e-3 * span:.3f} ms span: idle share "
+          f"{100 * (1 - busy / span):.1f} % (host wall {1e3 * wall:.1f} "
+          f"ms with the profiler on) ({card})")
 
     phase(f"pose graph: K = {GRAPH_MID['k']} on the card against the CPU")
     lm, cg = GRAPH_MID_ITERS
@@ -3417,8 +3415,87 @@ def multilap_run(card: str) -> dict:
     return {"multilap": launches}
 
 
-NEW_PATHS = ("lio", "ndt", "vgicp", "threaded", "k4", "recorded", "probe",
-             "memcheck", "loc", "hard", "graph", "multilap", "mesh")
+# the entry hook's pose on the card against the port's CPU run of the same
+# hook: tests/test_torch_entry.py's bound against the JAX hook
+ENTRY_T_TOL = 1e-4        # metres
+ENTRY_R_TOL = 1e-5        # radians
+ENTRY = {}                # K3's times on the entry hook's paths
+
+
+def entry_hook_run(card: str) -> dict:
+    """The single-device entry hook (``simpleslam_tpu_torch.entry``) on the
+    card, on the sorted table and on the dense map: each ``fn`` call one K3
+    launch and no plain or stepwise call; the pose within the stepwise
+    loop's bounds of ``gn_loop_stepwise`` on the same fixture (equal counts)
+    and within ``ENTRY_T_TOL`` / ``ENTRY_R_TOL`` of the hook's CPU run; the
+    wrapper time per call (CUDA events), K3's device time per launch
+    (torch.profiler) and its bound. Returns {path name: launch counts},
+    and keeps K3's times there in ``ENTRY``."""
+    from simpleslam_tpu_torch import entry as te
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+
+    phase("entry hook (K3 on the tiny fixture)")
+    out = {}
+    for name, dense in (("entry_table", False), ("entry_dense", True)):
+        kind = "dense" if dense else "table"
+        fn, args = te.entry(device="cuda", dense=dense)
+        src, vm, init = args
+        if not (src.xyz.is_cuda and init.is_cuda):
+            fail(f"{name}: entry() did not put its tensors on the card")
+        torch.cuda.synchronize()
+        lk.reset_counts()
+        with GnRecorder() as rec:
+            pose = fn(*args)
+            torch.cuda.synchronize()
+        c = launch_counts(rec)
+        print(f"{name}: one fn call: {describe_launches(c)}")
+        if (c["k3"], c["registrations"]) != (1, 1) or c["plain"] \
+                or c["stepwise"] or c["k4"] or c["k1_standalone"] \
+                or c["k2_standalone"]:
+            fail(f"{name}: an fn call must be exactly one K3 launch: {c}")
+        out[name] = c
+        tally = FusedTally()
+        got = tally.compare(f"{name}", src, vm, init, 0.0)
+        if tally.count_mismatches or not torch.equal(got.pose, pose):
+            fail(f"{name}: K3's counts differ from the stepwise loop's, or "
+                 "the hook's pose is not K3's")
+        p = pose.cpu().numpy()
+        cfn, cargs = te.entry(device="cpu", dense=dense)
+        q = cfn(*cargs).numpy()
+        t_err = float(np.linalg.norm(p[:3, 3].astype(np.float64) - q[:3, 3]))
+        r_err = _rot_angle(p[:3, :3], q[:3, :3])
+        print(f"{name}: pose {t_err:.3e} m, {r_err:.3e} rad from the hook's "
+              f"CPU run (limits {ENTRY_T_TOL} / {ENTRY_R_TOL})")
+        if t_err > ENTRY_T_TOL or r_err > ENTRY_R_TOL:
+            fail(f"{name}: the card's pose is {t_err:.3e} m / {r_err:.3e} rad "
+                 "from the CPU's")
+        ms = time_ms(lambda: fn(*args))
+        plain_ms = time_ms(lambda: loam.gn_loop_stepwise(*args), 10)
+        t = call_device(lambda: fn(*args))
+        hits = [v for k, v in (t.by_kernel.items() if t else ())
+                if "gn_loop_kernel" in k]
+        if t is None or len(hits) != 1 or t.launches != 1 or hits[0][0] != 1:
+            fail(f"{name}: the profiler must see one K3 launch per fn call: "
+                 f"{describe_call(t)}")
+        dev = hits[0][1]
+        iters, gathers = int(got.iters), int(got.n_gathers)
+        bound, bound_by = target_k3_bound(kind, vm, src, init, gathers, iters)
+        ENTRY[name] = {"ms": ms, "plain_ms": plain_ms, "device_ms": dev,
+                       "bound_ms": bound, "bound_by": bound_by,
+                       "iters": iters, "gathers": gathers,
+                       "max_abs_err": max(tally.t_err, t_err)}
+        print(f"{name}: K3 {iters} iterations, {gathers} K1 phases, "
+              f"{int(got.n_valid)} valid rows of {src.xyz.shape[0]} queries; "
+              f"fn median {ms:.4f} ms per call (CUDA events), K3 "
+              f"{1e3 * dev:.2f} us of device time per launch (torch.profiler),"
+              f" bound {1e3 * bound:.3f} us ({bound_by}), stepwise "
+              f"{plain_ms:.4f} ms ({card})")
+    return out
+
+
+NEW_PATHS = ("entry", "lio", "ndt", "vgicp", "threaded", "k4", "recorded",
+             "probe", "memcheck", "loc", "hard", "graph", "multilap", "mesh")
 
 
 def new_paths(which, streams, card: str, full=None):
@@ -3430,6 +3507,8 @@ def new_paths(which, streams, card: str, full=None):
 
     head = head_of(sim, streams, REGISTER_SCANS)
     out, k4_entry, k3_targets = {}, None, None
+    if "entry" in which:
+        out.update(entry_hook_run(card))
     if full is None and {"k4", "recorded", "mesh"} & set(which):
         _, full_sys, full_res = streamed_run(
             "streamed full (bench full config)", BENCH_FULL, streams, card,
@@ -3508,7 +3587,10 @@ def main() -> int:
         tally.check()
         print("kernels-only run: phases 1-3 passed, no path was driven")
         return 0
-    by_path = {"offline_lo": slice_run(args.scans, card)}
+    # first of the paths: its K3 device time comes from a young process's
+    # profiler (ROADMAP §3, F9)
+    by_path = entry_hook_run(card)
+    by_path["offline_lo"] = slice_run(args.scans, card)
 
     from simpleslam_tpu_torch.pipeline import simulate as sim
 
@@ -3530,8 +3612,8 @@ def main() -> int:
     main_errs, main_t, main_bd = main_path_kernels(full_sys, streams, full_res,
                                                    card, tally)
     tally.check()
-    new, k4_entry, k3_targets = new_paths(NEW_PATHS, streams, card,
-                                          (full_sys, full_res))
+    new, k4_entry, k3_targets = new_paths(set(NEW_PATHS) - {"entry"},
+                                          streams, card, (full_sys, full_res))
     del full_sys, be, full_res
     torch.cuda.empty_cache()
     by_path["loop_closure"] = loop_closure_run(card)
@@ -3579,7 +3661,9 @@ def main() -> int:
                            "max_abs_err": held["max_abs_err"][key]}
     kern[0]["phase_source_by_path"] = {
         p: {"scan2map_dense": "dense map corner block",
-            "scan2map_table": "sorted table, 27 cells"}.get(p, "merged row")
+            "scan2map_table": "sorted table, 27 cells",
+            "entry_dense": "dense map corner block",
+            "entry_table": "sorted table, 27 cells"}.get(p, "merged row")
         for p, c in by_path.items() if c["k1"]}
     kern[2]["device_ms"] = main_t["k3_dev"]
     kern[2]["device_ms_how"] = main_t["k3_dev_how"]
@@ -3598,6 +3682,8 @@ def main() -> int:
     # K3 on the other two targets (phase 13): its launches there, its time,
     # device time and bound from the last scan's recorded pose
     kern[2]["on_targets"] = k3_targets
+    # K3 on the entry hook's tiny fixture (phase 22): one launch per fn call
+    kern[2]["on_entry_hook"] = ENTRY
     # K4 runs on the mesh path's registrations on a dense map or a sorted
     # table (the single-rank paths run K3 there instead): its launches are
     # those of the mesh path, this kernel's main path

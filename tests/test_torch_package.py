@@ -58,14 +58,14 @@ def test_imports_without_jax_triton_or_reference():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert len(names) >= 39, names\n"
+        "assert len(names) >= 40, names\n"
         "for n in ('models.filter', 'ops.ndt', 'ops.vgicp', 'pipeline.threaded',\n"
         "          'utils.profiling', 'pipeline.bagio', 'pipeline.vis', 'eval',\n"
         "          'eval.metrics', 'eval.gps', 'eval.__main__', 'ops.roofline',\n"
         "          'memcheck', 'parallel', 'parallel.mesh',\n"
         "          'parallel.multihost', 'parallel.dist_registration',\n"
         "          'parallel.dist_posegraph', 'parallel.workers',\n"
-        "          'parallel.dryrun'):\n"
+        "          'parallel.dryrun', 'entry'):\n"
         "    assert p.__name__ + '.' + n in names, n\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"

@@ -22,11 +22,14 @@ import pytest
 import torch
 
 from simpleslam_tpu.models.backend import LC_VAR as J_LC_VAR
+from simpleslam_tpu.models.mapmanager import MapManager as JMapManager
 from simpleslam_tpu.pipeline import app as japp
 from simpleslam_tpu.pipeline import simulate as sim
 from simpleslam_tpu.pipeline.streamed import run_streamed as j_run_streamed
 from simpleslam_tpu.utils.config import Params as JParams
 from simpleslam_tpu_torch.models.backend import LC_VAR
+from simpleslam_tpu_torch.models.mapmanager import MIN_KF_GAP
+from simpleslam_tpu_torch.models.mapmanager import MapManager as TMapManager
 from simpleslam_tpu_torch.pipeline import app as tapp
 from simpleslam_tpu_torch.pipeline import streamed as tst
 from simpleslam_tpu_torch.utils.config import Params as TParams
@@ -73,18 +76,44 @@ def _reset_port_singletons():
     TLogger.reset()
 
 
+# each package's keyframe gate over the run: (distance from the gate's
+# anchor, admitted, the anchor, the scan's position) per retired scan
+GATES = {}
+
+
+def _recording_gate(mm_class, rec):
+    gate = mm_class.select_gate
+
+    def recording(self, pose):
+        anchor = np.array(self._select_anchor, np.float64)
+        pos = np.array(pose[:3, 3], np.float64)
+        admit = gate(self, pose)
+        rec.append((float(np.linalg.norm(pos - anchor)), bool(admit),
+                    anchor, pos))
+        return admit
+
+    return recording
+
+
 @pytest.fixture(scope="module")
 def spiral_runs():
     world = make_courtyard(RADIUS, seed=0)
     streams = sim.cache_streams(
         "lc_spiral400", lambda: _spiral_streams(world, n_scans=400))
-    system = tapp.SlamSystem(dict(CFG, torch={"device": "cpu"}))
-    result = tst.run_streamed(system, streams, sync_every=32)
-    TParams.reset()
-    JParams.load(CFG)
-    jsystem = japp.SlamSystem()
-    jresult = j_run_streamed(jsystem, streams, sync_every=32)
-    JParams.reset()
+    mp = pytest.MonkeyPatch()
+    for name, cls in (("port", TMapManager), ("jax", JMapManager)):
+        GATES[name] = []
+        mp.setattr(cls, "select_gate", _recording_gate(cls, GATES[name]))
+    try:
+        system = tapp.SlamSystem(dict(CFG, torch={"device": "cpu"}))
+        result = tst.run_streamed(system, streams, sync_every=32)
+        TParams.reset()
+        JParams.load(CFG)
+        jsystem = japp.SlamSystem()
+        jresult = j_run_streamed(jsystem, streams, sync_every=32)
+        JParams.reset()
+    finally:
+        mp.undo()
     return streams, system, result, jsystem, jresult
 
 
@@ -178,3 +207,44 @@ def test_multi_loop_map_consistent(spiral_runs):
     assert ate_post < 0.3, ate_post
     assert abs(ate_post - ate_post_j) <= MAX_ATE_DIFF_M, (ate_post,
                                                            ate_post_j)
+
+
+def _closures(system, lc_var):
+    be = system.backend
+    return {(be.edge_i[n], be.edge_j[n]) for n in range(len(be.edge_i))
+            if np.allclose(be.edge_var[n], lc_var)}
+
+
+@pytest.mark.slow
+def test_multi_loop_keyframes_part_at_a_gate_flip(spiral_runs):
+    """Where the closure counts part (ROADMAP §3, F8): both packages admit
+    the same keyframes and accept the same closures among them until the
+    1 m keyframe gate falls on either side at one scan, with each package's
+    distance nearer the gate than the two runs' positions of the scan and of
+    the gate's anchor lie apart together
+    (measured on the CPU: scan 282, keyframe 71, 0.995752 m in the port
+    against 1.005978 m, the scan's positions 1.95 mm apart, the gate's
+    anchors 8.66 mm). tests/test_torch_lc_replay.py replays
+    the later checks from the JAX package's inputs."""
+    streams, system, _, jsystem, _ = spiral_runs
+    t, j = GATES["port"], GATES["jax"]
+    n = len(streams.scan_stamps)
+    assert len(t) == len(j) == n - 1
+    flip = next(k for k in range(n - 1) if t[k][1] != j[k][1])
+    kf = 1 + sum(admit for _, admit, _, _ in t[:flip])
+    # the two distances differ by at most what the scan's positions and the
+    # gate's anchors differ by
+    gap_pos = np.linalg.norm(t[flip][3] - j[flip][3])
+    gap_anchor = np.linalg.norm(t[flip][2] - j[flip][2])
+    print(f"spiral: keyframe gate flips at scan {flip + 1} (keyframe {kf}): "
+          f"{t[flip][0]:.6f} m (port) against {j[flip][0]:.6f} m (JAX "
+          f"package); the scan's positions {gap_pos * 1e3:.2f} mm apart, the "
+          f"anchors {gap_anchor * 1e3:.2f} mm")
+    stamps = [[kf_.stamp for kf_ in s.map_manager.kf_obj.keyframes[:kf]]
+              for s in (system, jsystem)]
+    assert stamps[0] == stamps[1]
+    assert abs(t[flip][0] - MIN_KF_GAP) < gap_pos + gap_anchor
+    assert abs(j[flip][0] - MIN_KF_GAP) < gap_pos + gap_anchor
+    before = [{e for e in _closures(s, v) if max(e) < kf}
+              for s, v in ((system, LC_VAR), (jsystem, J_LC_VAR))]
+    assert before[0] == before[1] and len(before[0]) >= 3
