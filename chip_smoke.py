@@ -97,9 +97,8 @@ fails with a nonzero exit on the first problem:
    same config at the CLI's 16-scan batches, and the same keyframes in the
    two ``tum.txt`` files; then the same from a KITTI velodyne directory of 60
    scans;
-15. ``run_streamed(device_probe=True)`` on the ``lo`` config: ``device_exec``,
-   ``fetch_wait`` and ``fetch_xfer`` per batch and ``roofline.utilization``
-   of the batch against the card's peaks (no share above 1);
+15. (none: the benchmark, ``slambench/``, measures the device's busy and
+   idle time of the streamed paths);
 16. ``memcheck`` on the card, 4 segments of 48 scans: its JSON, ``ok``
    required;
 17. the mesh path (``parallel/``, after every other phase): ranks are
@@ -177,7 +176,7 @@ fails with a nonzero exit on the first problem:
    floor), the nvidia-smi line, and last a JSON line
    ``{"ok": true, "device": ...}``.
 
-``--only entry,lio,ndt,vgicp,threaded,k4,recorded,probe,memcheck,loc,hard,``
+``--only entry,lio,ndt,vgicp,threaded,k4,recorded,memcheck,loc,hard,``
 ``graph,multilap,mesh`` (any subset) drives just the named paths of 8-22 after
 the build (a quick check
 while working on one of them; ``k4``, ``recorded`` and ``mesh`` run the
@@ -2163,59 +2162,6 @@ def recorded_data(streams, full_result, card: str) -> dict:
     return out
 
 
-def device_probe_run(streams, card: str) -> None:
-    """Phase 15: the lo config with ``device_probe=True`` and the batch's
-    roofline shares."""
-    from simpleslam_tpu_torch.ops import roofline
-    from simpleslam_tpu_torch.pipeline import app
-    from simpleslam_tpu_torch.pipeline import simulate as sim
-    from simpleslam_tpu_torch.pipeline.streamed import run_streamed
-
-    phase("device_probe (bench lo config) and roofline")
-    system = app.SlamSystem(dict(BENCH_LO, torch={"device": "cuda"}))
-    result = run_streamed(system, streams, sync_every=BENCH_SYNC_EVERY,
-                          device_probe=True)
-    t = result.timers
-    nb = result.extras["n_batches"]
-    for key in ("device_exec", "fetch_wait", "fetch_xfer"):
-        if t.count[key] != nb or not t.total[key] > 0:
-            fail(f"device_probe: timer {key} booked {t.count[key]} times for "
-                 f"{nb} batches")
-    if t.count["fetch"]:
-        fail("device_probe: the fused fetch was booked too")
-    ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
-    n = len(streams.scan_stamps)
-    print(f"device_probe: {n} scans in {result.wall_time:.2f} s = "
-          f"{n / result.wall_time:.2f} scans/s with the probe's blocking; "
-          f"per batch of {BENCH_SYNC_EVERY}: device_exec "
-          f"{1e3 * t.mean('device_exec'):.3f} ms (series "
-          f"{[round(1e3 * v, 2) for v in t.series['device_exec']]}), "
-          f"fetch_wait {1e3 * t.mean('fetch_wait'):.4f} ms, fetch_xfer "
-          f"{1e3 * t.mean('fetch_xfer'):.4f} ms; ATE {ate:.4f} m ({card})")
-    if not ate < STREAMED_ATE_MAX:
-        fail(f"device_probe: ATE {ate}")
-    slab = int(system.register.tpu_cfg.get("loam_slab_size", 24))
-    cost = roofline.loam_batch_cost(
-        n_queries=result.extras["scan_capacity"], slab_rows=1,
-        lane_width=8 * slab * 3, slab_pts=slab, n_scans=BENCH_SYNC_EVERY,
-        mean_iters=result.extras["gn_iters_mean"],
-        mean_gathers=result.extras["gn_gathers_mean"])
-    # full batches only: the last one holds fewer scans
-    full = t.series["device_exec"][: (n - 1) // BENCH_SYNC_EVERY] or \
-        t.series["device_exec"]
-    util = roofline.utilization(cost, statistics.median(full))
-    print(f"roofline of one {BENCH_SYNC_EVERY}-scan batch: "
-          f"{cost['flops'] / 1e9:.3f} GFLOP, {cost['hbm_bytes'] / 1e6:.2f} MB "
-          f"of row reads, against device_exec median "
-          f"{1e3 * statistics.median(full):.3f} ms: share of the f32 peak "
-          f"{util['mfu']}, of the HBM bandwidth {util['hbm_util']}, of the "
-          f"speed of light {util['sol_frac']} ({card}; peaks "
-          f"{roofline.H100_SXM_F32_NON_TENSOR_FLOPS / 1e12:.0f} TFLOP/s f32, "
-          f"{roofline.H100_SXM_HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-    if not all(0 < util[k] <= 1 for k in ("mfu", "hbm_util", "sol_frac")):
-        fail(f"roofline: a share outside (0, 1]: {util}")
-
-
 def memcheck_run(card: str) -> None:
     """Phase 16: the steady-state check of the streamed executor."""
     from simpleslam_tpu_torch import memcheck
@@ -3495,7 +3441,7 @@ def entry_hook_run(card: str) -> dict:
 
 
 NEW_PATHS = ("entry", "lio", "ndt", "vgicp", "threaded", "k4", "recorded",
-             "probe", "memcheck", "loc", "hard", "graph", "multilap", "mesh")
+             "memcheck", "loc", "hard", "graph", "multilap", "mesh")
 
 
 def new_paths(which, streams, card: str, full=None):
@@ -3527,8 +3473,6 @@ def new_paths(which, streams, card: str, full=None):
         out.update(recorded_data(streams, full_res, card))
     full = None
     torch.cuda.empty_cache()
-    if "probe" in which:
-        device_probe_run(streams, card)
     if "memcheck" in which:
         memcheck_run(card)
     if "lio" in which:

@@ -27,6 +27,7 @@ import torch
 
 from .. import native
 from ..ops import pointcloud as pcops
+from ..utils import tictoc
 from ..utils.concurrency import SafeDeque
 from ..utils.config import Params
 from ..utils.logging import Logger
@@ -112,6 +113,10 @@ class LoopClosureManager:
 
     # -- context ingestion (LoopClosureManager.cpp:28-37; call under kf lock) --
     def add_context(self) -> None:
+        with tictoc.span("sc_ingest"):
+            self._add_context()
+
+    def _add_context(self) -> None:
         kfs = self.kf_obj.keyframes
         new = list(range(self.context.n_contexts, len(kfs)))
         if not new:
@@ -135,10 +140,11 @@ class LoopClosureManager:
     def dispatch_queries(self) -> None:
         """Queue the new contexts' retrievals without reading them back; the
         next ``lc_handler_once`` collects them."""
-        new_ids = list(range(self.lc_size, self.n_contexts))
-        if new_ids and hasattr(self.context, "query_dispatch"):
-            self._pending_queries = (new_ids,
-                                     self.context.query_dispatch(new_ids))
+        with tictoc.span("sc_query"):
+            new_ids = list(range(self.lc_size, self.n_contexts))
+            if new_ids and hasattr(self.context, "query_dispatch"):
+                self._pending_queries = (new_ids,
+                                         self.context.query_dispatch(new_ids))
 
     # -- history submap (LoopClosureManager.cpp:40-60; call under kf lock) -----
     def _history_submap(self, key: int) -> np.ndarray:

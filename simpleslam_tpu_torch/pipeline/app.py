@@ -30,9 +30,10 @@ from ..models.lidarodometry import LidarOdometry
 from ..models.mapmanager import MapManager
 from ..models.registration import make_register
 from ..parallel.mesh import check_world, group_is_up, is_writer
+from ..utils import tictoc
 from ..utils.config import Params
 from ..utils.logging import Logger
-from ..utils.profiling import annotate, trace
+from ..utils.profiling import trace
 from ..utils.tictoc import StageTimers, TicToc
 from . import simulate as sim
 
@@ -120,9 +121,17 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
     messages are dispatched in stamp order (wheel/IMU feed the EKF proxy in
     lio mode); each scan runs the full odometry step; a pending map update,
     then a pending backend pass and the loop-closure turn, run right after
-    it, as the reference's map and backend threads would."""
-    lg = Logger.get_instance()
+    it, as the reference's map and backend threads would. ``result.timers``
+    holds the spans ``odometry``, ``map_update``, ``backend`` (with
+    ``sc_ingest`` inside it) and ``loop_closure``."""
     timers = StageTimers()
+    with tictoc.bound(timers):
+        return _run_offline(system, streams, progress, timers)
+
+
+def _run_offline(system: SlamSystem, streams: sim.SensorStreams,
+                 progress: bool, timers: StageTimers) -> SlamResult:
+    lg = Logger.get_instance()
     tt_all = TicToc()
     wheel_i = 0
     imu_i = 0
@@ -156,31 +165,25 @@ def run_offline(system: SlamSystem, streams: sim.SensorStreams,
                         tw, streams.wheel_poses[wheel_i])
                     wheel_i += 1
 
-        tt = TicToc()
-        with annotate("odometry"):
+        with timers.span("odometry"):
             pose = system.lidar_odometry.generate_odom(float(stamp),
                                                        streams.scans[si])
-        timers.add("odometry", tt.toc())
         est_poses.append(pose)
         if system.register.is_converge or system.map_manager.is_submap_empty():
             n_conv += 1
         if system.map_manager.update_pending():
-            tt.tic()
-            with annotate("map_update"):
+            with timers.span("map_update"):
                 system.map_manager.update_map()
-            timers.add("map_update", tt.toc())
         if (system.backend is not None
                 and system.map_manager.kf_obj.is_event_coming()):
-            tt.tic()
-            system.backend.optim_once()
-            timers.add("backend", tt.toc())
+            with timers.span("backend"):
+                system.backend.optim_once()
             # the LC thread's synchronous turn: detect on the contexts the
             # backend just added, then let the backend consume the LC event
             if system.loop_closure is not None:
-                tt.tic()
-                if system.loop_closure.lc_handler_once():
-                    system.backend.optim_once()
-                timers.add("loop_closure", tt.toc())
+                with timers.span("loop_closure"):
+                    if system.loop_closure.lc_handler_once():
+                        system.backend.optim_once()
         if progress and si % 50 == 0:
             lg.info("scan %d/%d", si, len(scan_stamps))
 

@@ -64,6 +64,7 @@ from ..models.mapmanager import KeyFrame, KFEvent
 from ..models.registration import register_kind
 from ..ops import geometry as geo
 from ..ops.pointcloud import PAD_COORD, PointCloud
+from ..utils import tictoc
 from ..utils.config import Params
 from ..utils.logging import Logger
 from ..utils.tictoc import StageTimers, TicToc
@@ -113,49 +114,59 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
     guard, the jump rejection) is a ``torch.where``, so on the GPU the K
     registrations queue up behind each other and the batch's one host read
     is that of its packed rows when it retires.
+
+    Each scan's steps are spans of the run's timers (``tictoc.span``):
+    ``predict`` (the upload's dequantization and the prediction),
+    ``register`` and ``chain`` (the clamp, the guards and the row).
     """
     rows = []
     prev, prev2, o2m = pose_prev, pose_prev2, odom2map
     for k, raw_q in enumerate(ds_stack):
-        pc = upload_cloud(raw_q)
-        if local_odoms is not None:
-            # loose coupling: predict through odom2map (LidarOdometry.cpp:129)
-            init = geo.pose_compose(o2m, local_odoms[k])
-        else:
-            # constant-velocity prediction with the extrapolated per-scan
-            # translation capped unconditionally: once two chain poses
-            # disagree by D, uncapped extrapolation re-applies D every scan
-            # (measured in the reference package: a 3 m disagreement grew to
-            # 1e33 m within ~40 keyframes); no sensor moves 5 m between
-            # 10 Hz scans
-            step = geo.pose_compose(geo.pose_inverse(prev2), prev)
-            st_t = step[:3, 3]
-            scale = torch.clamp(
-                STEP_CAP / torch.clamp(torch.linalg.norm(st_t), min=1e-9),
-                max=1.0)
-            step = geo.make_pose(step[:3, :3], st_t * scale)
-            init = geo.pose_compose(prev, step)
-        pose, conv, fit, iters, gathers, support = register_kind(
-            pc, target, init, kind, degen, reduce_fn, rmax_reduce_fn,
-            axis_reduce)
-        if clamp:  # planar clamp each frame (frontend.planar_clamp config)
-            pose = geo.six_dof_to_mobile(pose)
-        # NaN safety is unconditional (one non-finite pose poisons the
-        # chain); the jump rejection is opt-in (tpu.max_scan_jump_m), since
-        # rejecting measured worse than using results as-is
-        ok = torch.all(torch.isfinite(pose))
-        if jump_cap > 0:
-            jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
-            ok = ok & (jump <= torch.where(conv, jump_cap, jump_cap / 3.0))
-        pose = torch.where(ok, pose, init)
-        if local_odoms is not None:
-            # odom2map update (LidarOdometry.cpp:238)
-            o2m = geo.pose_compose(pose, geo.pose_inverse(local_odoms[k]))
-        tail = torch.stack([(ok & conv).to(torch.float32),
-                            fit.to(torch.float32), iters.to(torch.float32),
-                            gathers.to(torch.float32),
-                            support.to(torch.float32)])
-        rows.append(torch.cat([pose.reshape(16), tail]))
+        with tictoc.span("predict"):
+            pc = upload_cloud(raw_q)
+            if local_odoms is not None:
+                # loose coupling: predict through odom2map
+                # (LidarOdometry.cpp:129)
+                init = geo.pose_compose(o2m, local_odoms[k])
+            else:
+                # constant-velocity prediction with the extrapolated
+                # per-scan translation capped unconditionally: once two
+                # chain poses disagree by D, uncapped extrapolation
+                # re-applies D every scan (measured in the reference
+                # package: a 3 m disagreement grew to 1e33 m within ~40
+                # keyframes); no sensor moves 5 m between 10 Hz scans
+                step = geo.pose_compose(geo.pose_inverse(prev2), prev)
+                st_t = step[:3, 3]
+                scale = torch.clamp(
+                    STEP_CAP / torch.clamp(torch.linalg.norm(st_t),
+                                           min=1e-9),
+                    max=1.0)
+                step = geo.make_pose(step[:3, :3], st_t * scale)
+                init = geo.pose_compose(prev, step)
+        with tictoc.span("register"):
+            pose, conv, fit, iters, gathers, support = register_kind(
+                pc, target, init, kind, degen, reduce_fn, rmax_reduce_fn,
+                axis_reduce)
+        with tictoc.span("chain"):
+            if clamp:  # planar clamp each frame (frontend.planar_clamp)
+                pose = geo.six_dof_to_mobile(pose)
+            # NaN safety is unconditional (one non-finite pose poisons the
+            # chain); the jump rejection is opt-in (tpu.max_scan_jump_m),
+            # since rejecting measured worse than using results as-is
+            ok = torch.all(torch.isfinite(pose))
+            if jump_cap > 0:
+                jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
+                ok = ok & (jump <= torch.where(conv, jump_cap,
+                                               jump_cap / 3.0))
+            pose = torch.where(ok, pose, init)
+            if local_odoms is not None:
+                # odom2map update (LidarOdometry.cpp:238)
+                o2m = geo.pose_compose(pose, geo.pose_inverse(local_odoms[k]))
+            tail = torch.stack([(ok & conv).to(torch.float32),
+                                fit.to(torch.float32), iters.to(torch.float32),
+                                gathers.to(torch.float32),
+                                support.to(torch.float32)])
+            rows.append(torch.cat([pose.reshape(16), tail]))
         prev2, prev = prev, pose
     return (prev, prev2, o2m), torch.stack(rows)
 
@@ -223,8 +234,12 @@ class _BackendWorker:
         self.thread.start()
 
     def _run(self) -> None:
+        with tictoc.bound(self.timers):
+            self._serve()
+
+    def _serve(self) -> None:
         kf = self.kf_obj
-        tt = TicToc()
+        timers = self.timers
         try:
             while True:
                 with kf.lock:
@@ -234,22 +249,22 @@ class _BackendWorker:
                         return
                     stamp = kf.event_stamp
                 sys_ = self.system
-                tt.tic()
-                hook = (sys_.loop_closure.dispatch_queries
-                        if sys_.loop_closure is not None else None)
-                if sys_.backend.optim_once(pre_fetch_hook=hook):
-                    self._push(sys_.backend.last_delta,
-                               sys_.backend.last_kf_count)
-                self.timers.add("backend", tt.toc())
+                # the pass's children: sc_ingest (under kf.lock) and
+                # sc_query; the rest is the lock wait and the factors
+                with timers.span("backend", cpu=True):
+                    hook = (sys_.loop_closure.dispatch_queries
+                            if sys_.loop_closure is not None else None)
+                    if sys_.backend.optim_once(pre_fetch_hook=hook):
+                        self._push(sys_.backend.last_delta,
+                                   sys_.backend.last_kf_count)
                 # how far the worker runs behind the odometry loop
-                self.timers.add("backend_lag", time.monotonic() - stamp)
+                timers.add("backend_lag", time.monotonic() - stamp)
                 if sys_.loop_closure is not None:
-                    tt.tic()
-                    if sys_.loop_closure.lc_handler_once():
-                        if sys_.backend.optim_once():
-                            self._push(sys_.backend.last_delta,
-                                       sys_.backend.last_kf_count)
-                    self.timers.add("lc", tt.toc())
+                    with timers.span("lc"):
+                        if sys_.loop_closure.lc_handler_once():
+                            if sys_.backend.optim_once():
+                                self._push(sys_.backend.last_delta,
+                                           sys_.backend.last_kf_count)
                 with self.kf_obj.lock:
                     n_now = len(self.kf_obj.keyframes)
                 with self._progress:
@@ -296,9 +311,11 @@ class _ScanPrep:
     call each, with bounded lookahead (``depth`` scans ahead of the
     consumer)."""
 
-    def __init__(self, scans, grid: float, capacity: int, depth: int = 64,
-                 chunk: int = 16, sort_grid: float = 0.0):
+    def __init__(self, scans, grid: float, capacity: int,
+                 timers: StageTimers, depth: int = 64, chunk: int = 16,
+                 sort_grid: float = 0.0):
         self.scans = scans
+        self.timers = timers
         self.grid = grid
         self.capacity = capacity
         self.sort_grid = sort_grid
@@ -314,6 +331,10 @@ class _ScanPrep:
         self.thread.start()
 
     def _run(self) -> None:
+        with tictoc.bound(self.timers):
+            self._produce()
+
+    def _produce(self) -> None:
         n = len(self.scans)
         try:
             nxt = 0
@@ -327,10 +348,12 @@ class _ScanPrep:
                 lo, hi = nxt, min(nxt + self.chunk, n)
                 # sorting by sensor-frame voxel key at the target grid makes
                 # consecutive queries read neighbouring rows of the target
-                qrows, cnts = native.voxel_downsample_sort_quant_batch(
-                    [np.asarray(self.scans[i], np.float32)
-                     for i in range(lo, hi)],
-                    self.grid, self.capacity, self.sort_grid, UPLOAD_SCALE)
+                with tictoc.span("prep_chunk"):
+                    qrows, cnts = native.voxel_downsample_sort_quant_batch(
+                        [np.asarray(self.scans[i], np.float32)
+                         for i in range(lo, hi)],
+                        self.grid, self.capacity, self.sort_grid,
+                        UPLOAD_SCALE)
                 with self._cv:
                     for k, i in enumerate(range(lo, hi)):
                         self._results[i] = (qrows[k], int(cnts[k]))
@@ -448,18 +471,20 @@ class _LocalOdomFeeder:
 
 
 def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
-                 sync_every: int = 16, progress: bool = False,
-                 device_probe: bool = False) -> SlamResult:
+                 sync_every: int = 16, progress: bool = False) -> SlamResult:
     """Replay ``streams`` through the streamed executor (lo or lio mode), in
     batches of ``sync_every`` scans.
 
-    ``device_probe=True`` blocks on each batch right after it is enqueued
-    and books the wait as ``device_exec``: the time from the first launch of
-    the batch to its last kernel's end, at the cost of the pipelining (the
-    host no longer runs ahead of the device). The result read is then booked
-    in two parts, ``fetch_wait`` (what of the batch the host still had to
-    wait for) and ``fetch_xfer`` (the copy of the packed rows), instead of
-    ``fetch``. The poses are the same either way.
+    ``result.timers`` holds the run's spans (``utils/tictoc.py``), bound on
+    this thread, the backend worker's and the scan-prep thread's: per batch
+    ``prep``, ``upload``, ``dispatch``, ``map_update``, ``fetch`` and
+    ``bookkeep``; per scan, inside ``dispatch``, ``predict``, ``register``
+    and ``chain``; per keyframe event ``backend`` (holding ``sc_ingest`` and
+    ``sc_query`` with loop closure on) and ``lc``; besides ``bootstrap``,
+    ``ekf_replay``, ``backend_backpressure`` and ``prep_chunk``. ``dispatch``
+    and ``backend`` also book their thread's CPU time. Its ``counters`` hold
+    each registration's GN iterations (``gn_iters``) and K1 phases
+    (``k1_phases``).
 
     With ``SIMPLESLAM_DEBUG_SUPPORT`` set in the environment, every retired
     scan prints its support, converged flag, iterations and position.
@@ -475,12 +500,18 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     collectives, a function of the data. ``extras["mesh"]`` counts the
     run's collectives.
     """
+    timers = StageTimers()
+    with tictoc.bound(timers):
+        return _run_streamed(system, streams, sync_every, progress, timers)
+
+
+def _run_streamed(system: SlamSystem, streams: sim.SensorStreams,
+                  sync_every: int, progress: bool,
+                  timers: StageTimers) -> SlamResult:
     lg = Logger.get_instance()
     cfg = Params.get_instance()
     mesh_n = int(cfg["tpu"].get("mesh_devices", 0))
-    timers = StageTimers()
     tt_all = TicToc()
-    tt = TicToc()
     stats = {"gn_iters": 0.0, "gn_gathers": 0.0, "n_batches": 0, "n_reg": 0,
              "support_sum": 0.0, "support_min": float("inf"),
              "n_deltas": 0, "n_dropped_deltas": 0}
@@ -554,16 +585,16 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     local_np = np.tile(np.eye(4, dtype=np.float32), (n_scans, 1, 1))
     feeder: Optional[_LocalOdomFeeder] = None
     if mode == "lio":
-        tt.tic()
-        feeder = _LocalOdomFeeder(streams, scan_stamps, local_np)
-        feeder.ensure(0)  # the chain anchor needs scan 0's local odom
-        timers.add("ekf_replay", tt.toc())
+        with timers.span("ekf_replay"):
+            feeder = _LocalOdomFeeder(streams, scan_stamps, local_np)
+            feeder.ensure(0)  # the chain anchor needs scan 0's local odom
 
     # spatial sort at the LOAM dense-map grid, or at the NDT/VGICP voxel
     # resolution (their Gaussian lookups coalesce the same way)
     sort_grid = getattr(system.register, "TARGET_GRID",
                         getattr(system.register, "RESOLUTION", 0.0))
-    prep = _ScanPrep(streams.scans, grid, dsc, sort_grid=float(sort_grid))
+    prep = _ScanPrep(streams.scans, grid, dsc, timers,
+                     sort_grid=float(sort_grid))
     # tpu.sync_backend: service keyframe events inline at batch boundaries
     # instead of on the worker thread — throughput pays the serialized
     # solves, accuracy becomes a function of the data alone
@@ -588,26 +619,25 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             odom2map_np = start_pose @ np.linalg.inv(
                 local_np[0].astype(np.float64))
         if mm.is_submap_empty():
-            tt.tic()
-            row0, cnt0 = prep.get(0)
-            pose0 = start_pose if mode != "lio" else (
-                odom2map_np @ local_np[0].astype(np.float64))
-            est_poses[0] = pose0
-            n_conv += 1
-            mm.set_cur_pose(pose0)
-            xyz0 = _dequant(row0, cnt0)
-            lg.warn("at first, no submap here for now, build the map!!")
-            kf0 = KeyFrame(float(scan_stamps[0]), pose0, xyz0)
-            if mm.put_keyframe(kf0):
-                with mm.kf_obj.lock:
-                    kf_idx = len(mm.kf_obj.keyframes) - 1
-                mm.store_keyframe_cloud(kf_idx, xyz0)
-                kf_scan_idx.append(0)
-            mm.update_map_device()
-            scan_anchor[0] = len(kf_scan_idx) - 1
-            retired_hi = 1
-            si = 1
-            timers.add("bootstrap", tt.toc())
+            with timers.span("bootstrap"):
+                row0, cnt0 = prep.get(0)
+                pose0 = start_pose if mode != "lio" else (
+                    odom2map_np @ local_np[0].astype(np.float64))
+                est_poses[0] = pose0
+                n_conv += 1
+                mm.set_cur_pose(pose0)
+                xyz0 = _dequant(row0, cnt0)
+                lg.warn("at first, no submap here for now, build the map!!")
+                kf0 = KeyFrame(float(scan_stamps[0]), pose0, xyz0)
+                if mm.put_keyframe(kf0):
+                    with mm.kf_obj.lock:
+                        kf_idx = len(mm.kf_obj.keyframes) - 1
+                    mm.store_keyframe_cloud(kf_idx, xyz0)
+                    kf_scan_idx.append(0)
+                mm.update_map_device()
+                scan_anchor[0] = len(kf_scan_idx) - 1
+                retired_hi = 1
+                si = 1
 
         def _pose_t(p: np.ndarray) -> torch.Tensor:
             return torch.tensor(np.asarray(p, np.float32), device=dev)
@@ -620,11 +650,6 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
         vis = system.vis
         vis_topic = cfg["vis"]["align"].strip("/")
 
-        def _wait_for_device() -> None:
-            """Block until the device has run everything enqueued so far."""
-            if dev.type == "cuda":
-                torch.cuda.current_stream(dev).synchronize()
-
         def dispatch(si: int, pose_prev, pose_prev2, odom2map):
             """Prep + upload + register one batch. A final partial batch
             registers only its real scans (the Python loop needs no fixed
@@ -634,38 +659,32 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             to rewind."""
             batch = list(range(si, min(si + sync_every, n_scans)))
             if feeder is not None:
-                tt.tic()
-                feeder.ensure(batch[-1])  # finalize this batch's local odoms
-                timers.add("ekf_replay", tt.toc())
+                with timers.span("ekf_replay"):
+                    # finalize this batch's local odoms
+                    feeder.ensure(batch[-1])
             mm.commit_pending_target()  # double-buffer swap boundary
             target = mm.get_target()
-            tt.tic()
-            rows = np.empty((len(batch), dsc, 3), np.int16)
-            for k, i in enumerate(batch):
-                row, cnt = prep.get(i)
-                rows[k] = row
-                kf_rows[i] = (row, cnt)
-            timers.add("prep", tt.toc())
-            tt.tic()
-            rows_d = torch.from_numpy(np.ascontiguousarray(
-                rows[:, block])).to(dev)
-            locals_d = (torch.from_numpy(
-                local_np[batch[0]: batch[-1] + 1]).to(dev)
-                if mode == "lio" else None)
-            timers.add("upload", tt.toc())
-            tt.tic()
-            (pose_prev, pose_prev2, odom2map), packed = batch_fn(
-                rows_d, locals_d, target, pose_prev, pose_prev2, odom2map)
-            if device_probe:
-                _wait_for_device()
-                timers.add("device_exec", tt.toc())
-            timers.add("dispatch", tt.toc())
+            with timers.span("prep"):
+                rows = np.empty((len(batch), dsc, 3), np.int16)
+                for k, i in enumerate(batch):
+                    row, cnt = prep.get(i)
+                    rows[k] = row
+                    kf_rows[i] = (row, cnt)
+            with timers.span("upload"):
+                rows_d = torch.from_numpy(np.ascontiguousarray(
+                    rows[:, block])).to(dev)
+                locals_d = (torch.from_numpy(
+                    local_np[batch[0]: batch[-1] + 1]).to(dev)
+                    if mode == "lio" else None)
+            with timers.span("dispatch", cpu=True):
+                (pose_prev, pose_prev2, odom2map), packed = batch_fn(
+                    rows_d, locals_d, target, pose_prev, pose_prev2,
+                    odom2map)
             # the map rebuild runs behind the batch just registered and is
             # committed at the next dispatch (double buffering)
             if mm.update_pending():
-                tt.tic()
-                mm.update_map_device(defer_swap=True)
-                timers.add("map_update", tt.toc())
+                with timers.span("map_update"):
+                    mm.update_map_device(defer_swap=True)
             return batch, packed, pose_prev, pose_prev2, odom2map
 
         def retire(batch, packed, corr) -> None:
@@ -674,20 +693,15 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             device chain after this batch was dispatched: the batch's poses
             predate them and are re-based into the current map frame here."""
             nonlocal n_conv, retired_hi
-            tt.tic()
-            if device_probe:
-                _wait_for_device()
-                timers.add("fetch_wait", tt.toc())
+            with timers.span("fetch"):
                 stacked = packed.cpu().numpy()
-                timers.add("fetch_xfer", tt.toc())
-            else:
-                stacked = packed.cpu().numpy()
-                timers.add("fetch", tt.toc())
             nb = len(batch)
             stats["n_batches"] += 1
             stats["n_reg"] += nb
             stats["gn_iters"] += float(np.sum(stacked[:nb, 18]))
             stats["gn_gathers"] += float(np.sum(stacked[:nb, 19]))
+            timers.tally("gn_iters", stacked[:nb, 18])
+            timers.tally("k1_phases", stacked[:nb, 19])
             sup = stacked[:nb, 20]
             stats["support_sum"] += float(np.sum(sup))
             stats["support_min"] = min(stats["support_min"],
@@ -698,32 +712,33 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                           f"{int(stacked[k, 16])} iters {int(stacked[k, 18])} "
                           f"pos {stacked[k, 3]:.1f},{stacked[k, 7]:.1f}",
                           flush=True)
-            tt.tic()
-            for k, i in enumerate(batch):
-                pose = corr @ stacked[k, :16].reshape(4, 4).astype(np.float64)
-                conv = stacked[k, 16] > 0.5
-                n_conv += bool(conv)
-                if not conv:
-                    lg.warn("pcr not converge!!")
-                est_poses[i] = pose
-                mm.set_cur_pose(pose)  # fires the > 1 m map-update notify
-                if mm.select_gate(pose):  # MapManager owns the admission
-                    row, cnt = kf_rows[i]
-                    xyz = _dequant(row, cnt)
-                    if mm.put_keyframe(
-                            KeyFrame(float(scan_stamps[i]), pose, xyz)):
-                        with mm.kf_obj.lock:
-                            kf_idx = len(mm.kf_obj.keyframes) - 1
-                        mm.store_keyframe_cloud(kf_idx, xyz)
-                        kf_scan_idx.append(i)
-                scan_anchor[i] = len(kf_scan_idx) - 1
-                if vis is not None:
-                    # the aligned scan, from what the host already holds (its
-                    # prepped row and the pose just read): no device access
-                    vis.publish_pc(vis_topic, _dequant(*kf_rows[i]), pose)
-                kf_rows.pop(i, None)
-            retired_hi = batch[-1] + 1
-            timers.add("bookkeep", tt.toc())
+            with timers.span("bookkeep"):
+                for k, i in enumerate(batch):
+                    pose = corr @ stacked[k, :16].reshape(4, 4).astype(
+                        np.float64)
+                    conv = stacked[k, 16] > 0.5
+                    n_conv += bool(conv)
+                    if not conv:
+                        lg.warn("pcr not converge!!")
+                    est_poses[i] = pose
+                    mm.set_cur_pose(pose)  # fires the > 1 m map-update notify
+                    if mm.select_gate(pose):  # MapManager owns the admission
+                        row, cnt = kf_rows[i]
+                        xyz = _dequant(row, cnt)
+                        if mm.put_keyframe(
+                                KeyFrame(float(scan_stamps[i]), pose, xyz)):
+                            with mm.kf_obj.lock:
+                                kf_idx = len(mm.kf_obj.keyframes) - 1
+                            mm.store_keyframe_cloud(kf_idx, xyz)
+                            kf_scan_idx.append(i)
+                    scan_anchor[i] = len(kf_scan_idx) - 1
+                    if vis is not None:
+                        # the aligned scan, from what the host already holds
+                        # (its prepped row and the pose just read): no device
+                        # access
+                        vis.publish_pc(vis_topic, _dequant(*kf_rows[i]), pose)
+                    kf_rows.pop(i, None)
+                retired_hi = batch[-1] + 1
 
             # backend corrections reach the chain after every solve that ran
             # (optimHandler applies its delta per pass, Backend.cpp:310-346)
@@ -732,20 +747,18 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                     _apply_backend_delta(delta, kf_count)
             elif sync_backend and mm.kf_obj.is_event_coming():
                 # the optimHandler turn run inline (see sync_backend above)
-                tt.tic()
                 be = system.backend
-                hook = (system.loop_closure.dispatch_queries
-                        if system.loop_closure is not None else None)
-                if be.optim_once(pre_fetch_hook=hook):
-                    _apply_backend_delta(be.last_delta, be.last_kf_count)
-                timers.add("backend", tt.toc())
+                with timers.span("backend", cpu=True):
+                    hook = (system.loop_closure.dispatch_queries
+                            if system.loop_closure is not None else None)
+                    if be.optim_once(pre_fetch_hook=hook):
+                        _apply_backend_delta(be.last_delta, be.last_kf_count)
                 if system.loop_closure is not None:
-                    tt.tic()
-                    if system.loop_closure.lc_handler_once():
-                        if be.optim_once():
-                            _apply_backend_delta(be.last_delta,
-                                                 be.last_kf_count)
-                    timers.add("lc", tt.toc())
+                    with timers.span("lc"):
+                        if system.loop_closure.lc_handler_once():
+                            if be.optim_once():
+                                _apply_backend_delta(be.last_delta,
+                                                     be.last_kf_count)
 
         def _apply_backend_delta(delta_np: np.ndarray, kf_count: int) -> None:
             """Broadcast one solve's rigid correction everywhere pose state
@@ -829,9 +842,8 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                 if progress:
                     lg.info("scan %d/%d", done[0][-1] + 1, n_scans)
             elif _backlogged() and not pending and si < n_scans:
-                tt.tic()
-                worker.wait_progress(timeout=0.05)
-                timers.add("backend_backpressure", tt.toc())
+                with timers.span("backend_backpressure"):
+                    worker.wait_progress(timeout=0.05)
     except BaseException:
         if worker is not None:
             worker._stop = True  # it exits at its next idle wait

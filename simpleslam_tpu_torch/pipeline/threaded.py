@@ -62,9 +62,8 @@ class ThreadedRunner:
         if item is None:
             return
         stamp, scan = item
-        tt = TicToc()
-        pose = self.system.lidar_odometry.generate_odom(stamp, scan)
-        self.timers.add("odometry", tt.toc())
+        with self.timers.span("odometry"):
+            pose = self.system.lidar_odometry.generate_odom(stamp, scan)
         self.est_poses.append(pose)
         self.est_stamps.append(stamp)
 
@@ -72,9 +71,8 @@ class ThreadedRunner:
         mm = self.system.map_manager
         if not mm._set_update.wait(timeout=0.1):
             return
-        tt = TicToc()
-        mm.update_map()
-        self.timers.add("map_update", tt.toc())
+        with self.timers.span("map_update"):
+            mm.update_map()
 
     def _backend_body(self) -> None:
         kf_obj = self.system.map_manager.kf_obj
@@ -83,18 +81,16 @@ class ThreadedRunner:
                 lambda: kf_obj._event != 0 or self._exit.is_set(), timeout=0.1)
         if not ok or self._exit.is_set():
             return
-        tt = TicToc()
-        self.system.backend.optim_once()
-        self.timers.add("backend", tt.toc())
+        with self.timers.span("backend"):
+            self.system.backend.optim_once()
 
     def _lc_body(self) -> None:
         lcm = self.system.loop_closure
         if lcm.n_contexts <= lcm.lc_size:
             time.sleep(0.02)
             return
-        tt = TicToc()
-        lcm.lc_handler_once()
-        self.timers.add("loop_closure", tt.toc())
+        with self.timers.span("loop_closure"):
+            lcm.lc_handler_once()
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:

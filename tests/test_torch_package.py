@@ -17,11 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from simpleslam_tpu.ops import roofline as jroof
 from simpleslam_tpu.pipeline import simulate as jsim
 from simpleslam_tpu.utils.config import DEFAULT_PARAMS as J_DEFAULTS
 from simpleslam_tpu_torch import native
-from simpleslam_tpu_torch.ops import roofline as troof
 from simpleslam_tpu_torch.pipeline import app as tapp
 from simpleslam_tpu_torch.pipeline import simulate as tsim
 from simpleslam_tpu_torch.utils.config import DEFAULT_PARAMS as T_DEFAULTS
@@ -61,7 +59,7 @@ def test_imports_without_jax_triton_or_reference():
         "assert len(names) >= 40, names\n"
         "for n in ('models.filter', 'ops.ndt', 'ops.vgicp', 'pipeline.threaded',\n"
         "          'utils.profiling', 'pipeline.bagio', 'pipeline.vis', 'eval',\n"
-        "          'eval.metrics', 'eval.gps', 'eval.__main__', 'ops.roofline',\n"
+        "          'eval.metrics', 'eval.gps', 'eval.__main__',\n"
         "          'memcheck', 'parallel', 'parallel.mesh',\n"
         "          'parallel.multihost', 'parallel.dist_registration',\n"
         "          'parallel.dist_posegraph', 'parallel.workers',\n"
@@ -105,36 +103,6 @@ def test_config_schema_is_the_reference_one_plus_the_device_key():
     port = copy.deepcopy(T_DEFAULTS)
     assert port.pop("torch") == {"device": "cuda"}
     assert port == J_DEFAULTS
-
-
-def test_roofline_counts_are_the_reference_ones_against_the_cards_peaks():
-    """``loam_batch_cost`` counts what the reference counts when given its
-    f32 rows, and by default the int16 rows the port really reads (half the
-    bytes); ``utilization`` divides by the H100's published peaks, not by
-    the reference's."""
-    kw = dict(n_queries=6144, slab_rows=1, lane_width=8 * 24 * 3, slab_pts=24,
-              n_scans=32, mean_iters=2.03, mean_gathers=1.38)
-    cost = troof.loam_batch_cost(**kw, lane_bytes=4.0)
-    assert cost == jroof.loam_batch_cost(**kw)
-    half = troof.loam_batch_cost(**kw)
-    assert half["hbm_bytes"] == cost["hbm_bytes"] / 2
-    assert half["flops"] == cost["flops"]
-    assert troof.H100_SXM_HBM_BYTES_PER_S == 3.35e12
-    assert troof.H100_SXM_F32_NON_TENSOR_FLOPS == 67e12
-    assert not [n for n in vars(troof) if "V5E" in n.upper()]
-    dev_s = 0.1
-    u = troof.utilization(half, dev_s)
-    assert u["mfu"] == pytest.approx(half["flops"] / dev_s / 67e12, rel=1e-2)
-    assert u["hbm_util"] == pytest.approx(half["hbm_bytes"] / dev_s / 3.35e12,
-                                          rel=1e-2)
-    assert u["sol_frac"] == max(u["mfu"], u["hbm_util"])
-    assert 0 < u["sol_frac"] <= 1
-    # at the speed of light itself every share is at most 1, one of them 1
-    sol = max(half["flops"] / 67e12, half["hbm_bytes"] / 3.35e12)
-    at = troof.utilization(half, sol)
-    assert at["sol_frac"] == 1.0 and max(at["mfu"], at["hbm_util"]) == 1.0
-    assert troof.utilization(half, 0.0) == {"mfu": 0.0, "hbm_util": 0.0,
-                                            "sol_frac": 0.0}
 
 
 @pytest.mark.parametrize("cfg,refusal", [
@@ -228,24 +196,41 @@ def test_cli_mode_and_register_flags(tmp_path, capsys, flags, stage):
     assert got == flags[1]
 
 
-def test_cli_trace_writes_a_chrome_trace(tmp_path):
+@pytest.mark.parametrize("streamed", [False, True],
+                         ids=["offline", "streamed"])
+def test_cli_trace_writes_a_chrome_trace(tmp_path, streamed):
     """``python -m simpleslam_tpu_torch.pipeline.app --trace DIR`` captures
-    the run under torch.profiler; the offline harness's stage annotations
-    are on its timeline. (A process of its own, as a user runs it: this
-    one has imported jax, whose profiler shares the tracing library.)"""
+    the run under torch.profiler; the offline harness's stages, or the
+    streamed executor's (with the backend worker's on a thread of its own),
+    are ranges on its timeline. (A process of its own, as a user runs it:
+    this one has imported jax, whose profiler shares the tracing
+    library.)"""
     cfg = tmp_path / "cpu.json"
-    cfg.write_text('{"backend": {"enable": false}, "torch": {"device": "cpu"},'
-                   ' "tpu": {"scan_capacity": 8192}}')
+    backend = ('{"enable": true, "lc": {"enable": false}}' if streamed
+               else '{"enable": false}')
+    cfg.write_text('{"backend": %s, "torch": {"device": "cpu"},'
+                   ' "tpu": {"scan_capacity": 8192}}' % backend)
     r = subprocess.run(
         [sys.executable, "-m", "simpleslam_tpu_torch.pipeline.app",
          "--synthetic", "--config", str(cfg), "--scans", "10", "--out",
-         str(tmp_path / "map"), "--trace", str(tmp_path / "tr")],
+         str(tmp_path / "map"), "--trace", str(tmp_path / "tr")]
+        + (["--streamed"] if streamed else []),
         cwd=REPO, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    names = {e.get("name") for e in json.loads(
-        (tmp_path / "tr" / "trace.json").read_text())["traceEvents"]}
-    assert {"odometry", "map_update"} <= names
+    events = json.loads(
+        (tmp_path / "tr" / "trace.json").read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
     assert any(n and n.startswith("aten::") for n in names)
+    if not streamed:
+        assert {"odometry", "map_update"} <= names
+        return
+    assert {"dispatch", "predict", "register", "chain", "fetch",
+            "backend"} <= names
+    tids = {}
+    for e in events:
+        tids.setdefault(e.get("name"), set()).add(e.get("tid"))
+    assert len(tids["dispatch"]) == 1
+    assert not tids["backend"] & tids["dispatch"]
 
 
 def test_cli_synthetic_run(tmp_path, capsys):

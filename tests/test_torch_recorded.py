@@ -1,7 +1,7 @@
 """The port's recorded-data path on the CPU: ``app.main --bag`` and
 ``--kitti`` on a short synthetic sequence that the port itself writes to a
-temporary directory, with ``vis.enable`` on; ``run_streamed(device_probe=
-True)`` and the ``SIMPLESLAM_DEBUG_SUPPORT`` print.
+temporary directory, with ``vis.enable`` on; and the
+``SIMPLESLAM_DEBUG_SUPPORT`` print.
 
 Bounds: keyframe APE against the ground-truth TUM file under 0.15 m (the
 offline bound of tests/test_pipeline_lo.py); the replay from a bag within
@@ -142,21 +142,6 @@ def test_bag_replay_tracks_the_in_memory_replay(recorded, in_memory_run):
     assert r.keyframe_count == in_memory_run.keyframe_count
     ate = sim.ate_rmse(streams.gt_poses, r.poses, align=False)
     assert ate < 0.25 and r.converged_frac > 0.9
-
-
-def test_device_probe_books_its_timers_and_keeps_the_poses(recorded,
-                                                           in_memory_run):
-    r = tst.run_streamed(tapp.SlamSystem(dict(LO_CFG)), recorded[0],
-                         sync_every=8, device_probe=True)
-    n = r.extras["n_batches"]
-    for name in ("device_exec", "fetch_wait", "fetch_xfer", "dispatch"):
-        assert r.timers.count[name] == n, (name, dict(r.timers.count))
-    assert "fetch" not in r.timers.count
-    assert r.timers.total["device_exec"] > 0
-    for name in ("device_exec", "fetch_wait", "fetch_xfer"):
-        assert name not in in_memory_run.timers.count
-    assert in_memory_run.timers.count["fetch"] == n
-    np.testing.assert_array_equal(r.poses, in_memory_run.poses)
 
 
 def test_debug_support_prints_one_line_per_registered_scan(recorded,
