@@ -459,31 +459,35 @@ def device_activity(prof, what: str):
 
 
 class GnRecorder:
-    """Observes ``loam.gn_loop`` during a run: keeps every registration's
-    iteration and gather counts, start and result on the device and reads
-    them once at the end. ``k1_phases`` / ``k2_phases`` are the times K1's
-    and K2's bodies ran inside K3; ``records`` is (starts, results,
-    iterations, gathers) per registration."""
+    """Observes ``loam.gn_loop_row`` (every K3 registration, inside
+    ``loam.gn_loop`` and in the streamed batch body) during a run: keeps
+    every registration's iteration and gather counts, start and result on
+    the device and reads them once at the end. ``k1_phases`` /
+    ``k2_phases`` are the times K1's and K2's bodies ran inside K3;
+    ``records`` is (starts, results, iterations, gathers) per
+    registration."""
 
     def __enter__(self):
         from simpleslam_tpu_torch.ops import loam
+        from simpleslam_tpu_torch.ops import loam_kernels as lk
 
-        self._loam, self._orig, self._rows = loam, loam.gn_loop, []
+        self._loam, self._orig, self._rows = loam, loam.gn_loop_row, []
         self._poses = []
 
         def recording(*args, **kwargs):
-            res = self._orig(*args, **kwargs)
-            self._rows.append(torch.stack([res.iters, res.n_gathers]))
+            row = self._orig(*args, **kwargs)
+            self._rows.append(torch.stack(
+                [row[lk.GN_ITERS], row[lk.GN_GATHERS]]).to(torch.int32))
             start = args[2] if len(args) > 2 else kwargs["init_pose"]
             self._poses.append(torch.stack([start.to(torch.float32),
-                                            res.pose]))
-            return res
+                                            row[:16].view(4, 4)]))
+            return row
 
-        loam.gn_loop = recording
+        loam.gn_loop_row = recording
         return self
 
     def __exit__(self, *exc):
-        self._loam.gn_loop = self._orig
+        self._loam.gn_loop_row = self._orig
         counts = (torch.stack(self._rows).cpu().numpy() if self._rows
                   else np.zeros((0, 2), np.int64))
         poses = (torch.stack(self._poses).cpu().numpy().astype(np.float64)
@@ -1024,7 +1028,9 @@ def launch_counts(rec: GnRecorder) -> dict:
             "plain": (lk.K1_PLAIN_CUDA_CALLS + lk.K2_PLAIN_CUDA_CALLS
                       + lk.K4_PLAIN_CUDA_CALLS),
             "stepwise": lk.K3_PLAIN_CUDA_CALLS, "registrations": rec.n_reg,
-            "k1": rec.k1_phases, "k2": rec.k2_phases}
+            "k1": rec.k1_phases, "k2": rec.k2_phases,
+            "scan_dequant": lk.DEQUANT_LAUNCHES,
+            "pose_step": lk.STEP_LAUNCHES}
 
 
 def describe_launches(c: dict) -> str:
@@ -1207,6 +1213,14 @@ def streamed_run(name: str, cfg: dict, streams, card: str, ate_before=None,
     launches = launch_counts(rec)
     result.extras["gn_records"] = rec.records
     n = len(streams.scan_stamps)
+    # the chain kernels: one dequantize launch a batch, one step a scan
+    # registered (all but the scan that seeds the map)
+    chain = (launches["scan_dequant"], launches["pose_step"])
+    if chain != (result.extras["n_batches"], n - 1):
+        fail(f"{name}: dequantize / step launches {chain}, expected "
+             f"({result.extras['n_batches']}, {n - 1})")
+    print(f"{name}: chain kernels: {chain[0]} dequantize launches for "
+          f"{chain[0]} batches, {chain[1]} step launches for {n - 1} scans")
     ate = sim.ate_rmse(streams.gt_poses, result.poses, align=False)
     report_streamed(name, result, n, ate, launches, card, ate_before)
     check_path(name, result, n, ate, ate_max, conv_min, launches,
@@ -1301,6 +1315,280 @@ def main_path_kernels(system, streams, result, card: str, tally: FusedTally):
           f"{1e3 * t['barrier_floor_ms']['k3_off']:.2f} us, device "
           f"{1e3 * t['k3_off_dev']:.1f} us ({card})")
     return errs, t, bd
+
+
+CHAIN_TOL = 1e-4   # pose entries, kernels' chain against the torch chain
+
+
+def sm_clocks(fn, seconds: float):
+    """Run ``fn`` over and over for ``seconds`` while ``nvidia-smi`` reads
+    the card's SM clock every 20 ms (reading only): (calls made, the SM
+    clock readings in MHz)."""
+    import subprocess
+
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits", "-lms", "20"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+        text=True)
+    try:
+        time.sleep(0.3)
+        calls, t0 = 0, time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            calls += 1
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+    out, _ = smi.communicate(timeout=10)
+    mhz = [float(x) for x in out.split()
+           if x.strip().replace(".", "").isdigit()]
+    return calls, mhz
+
+
+def k3_per_launch_ms(prof):
+    """Mean device ms of K3's launches in a ``torch.profiler`` run, and
+    their number."""
+    from torch.autograd import DeviceType
+
+    d = [1e-3 * (e.time_range.end - e.time_range.start) for e in prof.events()
+         if e.device_type == DeviceType.CUDA and "gn_loop_kernel" in e.name]
+    return (statistics.fmean(d) if d else None), len(d)
+
+
+def jump_guard(rows_d, vm, degen, poses, prev, prev2) -> None:
+    """The jump guard of ``pose_step`` against the torch chain's on each
+    scan of a batch, fed the same inputs on both sides: the scan's start
+    predicted from the chain ``poses`` (packed rows) before it, K3's row
+    from that start, and a cap that accepts the scan, one that rejects it
+    and the accepting cap with the flag unconverged (a third of it). A
+    whole batch run with a rejecting cap is no test: a rejected scan keeps
+    its start, which the two chains round apart (cuBLAS's 4x4 products
+    against the kernel's), and K3's gates flip on the starts after it.
+    Flags equal, poses and the next start within CHAIN_TOL."""
+    from simpleslam_tpu_torch.ops import geometry as geo
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.ops.pointcloud import PAD_COORD, PointCloud
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    dev = rows_d.device
+    eye = torch.eye(4, device=dev)
+    fit0 = torch.zeros((), device=dev)
+    seen, err = {"accepted": 0, "rejected": 0}, 0.0
+    for j in range(rows_d.shape[0]):
+        p1 = (torch.from_numpy(poses[j - 1, :16]).view(4, 4).to(dev) if j
+              else prev)
+        p2 = (torch.from_numpy(poses[j - 2, :16]).view(4, 4).to(dev)
+              if j > 1 else (prev if j else prev2))
+
+        def chain_of():
+            return lk.scan_dequant(rows_d[j:j + 1], p1, p2, eye, None,
+                                   streamed.UPLOAD_SCALE, streamed.UPLOAD_PAD,
+                                   PAD_COORD, streamed.STEP_CAP)
+
+        c0 = chain_of()
+        reg = loam.gn_loop_row(PointCloud(c0.xyz[0], torch.zeros_like(
+            c0.xyz[0][:, 0]), c0.mask[0]), vm, c0.init[0],
+            degen_per_row=degen)
+        init = streamed._predict(p1, p2, eye, None)
+        jump = float(torch.linalg.norm(
+            geo.six_dof_to_mobile(reg[:16].view(4, 4))[:3, 3] - init[:3, 3]))
+        cases = [(max(2.0 * jump, 1e-3), True, True)]
+        if jump > 1e-4:   # a scan that did not move from its start
+            cases += [(0.5 * jump, True, False), (2.0 * jump, False, False)]
+        for cap, conv, want_ok in cases:
+            r = reg.clone()
+            r[lk.GN_CONVERGED] = float(conv)
+            c = chain_of()
+            lk.pose_step(c, 0, r, None, True, cap, streamed.STEP_CAP)
+            counts = r[16:].to(torch.int32)
+            pose, o2m, row = streamed._chain(
+                r[:16].view(4, 4), init, r[lk.GN_CONVERGED] > 0.5, fit0,
+                counts[lk.GN_ITERS - 16], counts[lk.GN_GATHERS - 16],
+                counts[lk.GN_N_VALID - 16], eye, True, cap, None)
+            got, want = c.packed[0].cpu().numpy(), row.cpu().numpy()
+            ok = bool(got[16] > 0.5)
+            if not np.array_equal(got[16:], want[16:]) or ok != want_ok:
+                fail(f"jump guard, scan {j}, cap {cap:.4g} m, converged "
+                     f"{conv}: flags {got[16:].tolist()} against the torch "
+                     f"chain's {want[16:].tolist()}")
+            # the state the next start is predicted from: prev, prev2
+            e = max(float(np.abs(got[:16] - want[:16]).max()),
+                    float((c.state[0] - pose).abs().max()),
+                    float((c.state[1] - p1).abs().max()))
+            if not want_ok:   # a rejected scan keeps its start
+                e = max(e, float((c.state[0] - init).abs().max()))
+            if not e <= CHAIN_TOL:
+                fail(f"jump guard, scan {j}, cap {cap:.4g} m, converged "
+                     f"{conv}: poses {e} from the torch chain's, over "
+                     f"{CHAIN_TOL}")
+            err = max(err, e)
+            seen["accepted" if ok else "rejected"] += 1
+    print(f"  jump guard on each of the {rows_d.shape[0]} scans, fed the "
+          f"same inputs: {seen['accepted']} accepted and {seen['rejected']} "
+          f"rejected as the torch chain, poses {err:.3g} from its")
+    if not seen["rejected"] or not seen["accepted"]:
+        fail(f"jump guard: {seen}: a side of the guard never ran")
+
+
+def pose_chain_kernels(system, streams, result, card: str) -> list:
+    """The streamed executor's chain kernels (``csrc/pose_chain.cu``) on the
+    streamed full path's own last batch (its target, its last 32 scans
+    prepped at the run's scan capacity, the chain at its recorded poses):
+    the batch through ``_batch_body_kernels`` and through the torch chain
+    ``_batch_body_plain`` on CUDA tensors, with the clamp on and off and
+    with a jump cap that rejects scans, flags and counts equal and poses
+    within CHAIN_TOL; each kernel's time against its torch version's and
+    its byte bound; and K3's device time behind each chain with the card's
+    SM clock read meanwhile. Returns the two kernels-line entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from simpleslam_tpu_torch.ops import loam
+    from simpleslam_tpu_torch.ops import loam_kernels as lk
+    from simpleslam_tpu_torch.ops.pointcloud import PAD_COORD, PointCloud
+    from simpleslam_tpu_torch.pipeline import streamed
+
+    phase("chain kernels against the torch chain on the streamed full inputs")
+    dev = system.register.device
+    cap = int(result.extras["scan_capacity"])
+    n, k = len(streams.scan_stamps), BENCH_SYNC_EVERY
+    rows, _ = prep_scans(system, streams, list(range(n - k, n)), cap)
+    rows_d = torch.from_numpy(rows).to(dev)
+
+    def pose_t(i):
+        return torch.tensor(result.poses[i].astype(np.float32), device=dev)
+
+    prev, prev2, eye = pose_t(n - k - 1), pose_t(n - k - 2), torch.eye(
+        4, device=dev)
+    vm = system.map_manager.get_target()
+    degen = float(system.register.degen_per_row)
+
+    def args(clamp, jump_cap):
+        return (rows_d, vm, prev, prev2, eye, "loam", clamp, degen, jump_cap,
+                None, None, None, None)
+
+    print(f"batch of {k} scans at scan capacity {cap}, target rows "
+          f"{tuple(vm.rows.shape)}")
+    streamed._batch_body_kernels(*args(True, 0.0))
+    torch.cuda.synchronize()
+    ran, err = {}, 0.0
+    for tag, clamp in (("clamp on", True), ("clamp off", False)):
+        lk.reset_counts()
+        st_k, got = streamed._batch_body_kernels(*args(clamp, 0.0))
+        counts = (lk.DEQUANT_LAUNCHES, lk.STEP_LAUNCHES, lk.K3_LAUNCHES)
+        st_t, want = streamed._batch_body_plain(*args(clamp, 0.0))
+        got, want = got.cpu().numpy(), want.cpu().numpy()
+        if counts != (1, k, k):
+            fail(f"chain kernels, {tag}: dequantize / step / K3 launches "
+                 f"{counts}, expected (1, {k}, {k})")
+        if not (np.isfinite(got).all() and np.isfinite(want).all()):
+            fail(f"chain kernels, {tag}: a packed row is not finite")
+        if not np.array_equal(got[:, 16:], want[:, 16:]):
+            bad = np.flatnonzero((got[:, 16:] != want[:, 16:]).any(axis=1))
+            fail(f"chain kernels, {tag}: flags or counts differ from the "
+                 f"torch chain's at scans {bad.tolist()}: "
+                 f"{got[bad, 16:].tolist()} against {want[bad, 16:].tolist()}")
+        e = float(np.abs(got[:, :16] - want[:, :16]).max())
+        for a, b in zip(st_k, st_t):
+            e = max(e, float((a - b).abs().max()))
+        if not e <= CHAIN_TOL:
+            fail(f"chain kernels, {tag}: poses {e} from the torch chain's, "
+                 f"over {CHAIN_TOL}")
+        err = max(err, e)
+        ran[tag] = want
+        print(f"  {tag}: flags and counts equal, converged "
+              f"{int(got[:, 16].sum())} of {k}, poses and state {e:.3g} "
+              f"from the torch chain's; 1 dequantize, {k} step and {k} K3 "
+              f"launches")
+    clamp_moves = float(np.abs(ran["clamp on"][:, :16]
+                               - ran["clamp off"][:, :16]).max())
+    print(f"  the clamp moves the chain by up to {clamp_moves:.3g}")
+    if not clamp_moves > 10 * CHAIN_TOL:
+        fail("chain kernels: the clamp leaves the chain within the "
+             "tolerance, so the comparison cannot see it fault")
+    jump_guard(rows_d, vm, degen, ran["clamp on"], prev, prev2)
+
+    # each kernel against its torch version: the batch's upload and scan
+    # 0's prediction; scan 0's chain and scan 1's prediction after K3
+    def dequant():
+        return lk.scan_dequant(rows_d, prev, prev2, eye, None,
+                               streamed.UPLOAD_SCALE, streamed.UPLOAD_PAD,
+                               PAD_COORD, streamed.STEP_CAP)
+
+    def dequant_plain():
+        for r in rows_d:
+            streamed.upload_cloud(r)
+        return streamed._predict(prev, prev2, eye, None)
+
+    chain = dequant()
+    src0 = PointCloud(chain.xyz[0], torch.zeros_like(chain.xyz[0][:, 0]),
+                      chain.mask[0])
+    reg = loam.gn_loop_row(src0, vm, chain.init[0], degen_per_row=degen)
+    res = loam.gn_loop(src0, vm, chain.init[0], degen_per_row=degen)
+    fit0 = torch.zeros((), device=dev)
+
+    def step():
+        lk.pose_step(chain, 0, reg, None, True, 0.0, streamed.STEP_CAP)
+
+    def step_plain():
+        pose, _, _ = streamed._chain(res.pose, chain.init[0], res.converged,
+                                     fit0, res.iters, res.n_gathers,
+                                     res.n_valid, eye, True, 0.0, None)
+        return streamed._predict(pose, prev, eye, None)
+
+    n_pts = rows_d.shape[0] * rows_d.shape[1]
+    step_bytes = 4 * (lk.GN_ROW + 16 + 2 * 48 + 21 + 16)
+    spec = (("scan_dequant", "scan_dequant_kernel", dequant, dequant_plain,
+             n_pts * (6 + 12 + 1) + 4 * (48 + 48 + 16)),
+            ("pose_step", "pose_step_kernel", step, step_plain, step_bytes))
+    entries = []
+    for name, kname, fn, plain, nbytes in spec:
+        ms, plain_ms = time_ms(fn), time_ms(plain)
+        dev_ms, how = kernel_device_ms_how(kname, fn)
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        host_ms = (time.perf_counter() - t0) / 200 * 1e3
+        torch.cuda.synchronize()
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        print(f"  {name}: {ms:.4f} ms per wrapper call (CUDA events), host "
+              f"{1e3 * host_ms:.2f} us per call, device {us(dev_ms)} per "
+              f"launch ({how}), torch version {plain_ms:.4f} ms; byte bound "
+              f"{1e3 * bound:.4f} us ({nbytes} bytes) = "
+              f"{100 * bound / dev_ms:.2f} % of it on the device ({card})")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "simpleslam_tpu_torch/csrc/pose_chain.cu",
+            "replaces": "the torch chain of pipeline/streamed.py "
+                        "(_predict, _chain, upload_cloud); no TPU kernel",
+            "max_abs_err": err,
+            "max_abs_err_is": "packed rows and pose state against "
+                              "_batch_body_plain on CUDA, 32 scans",
+            "ms": ms, "plain_ms": plain_ms, "host_ms": host_ms,
+            "device_ms": dev_ms, "device_ms_how": how,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": None})
+
+    # K3 behind each chain, the SM clock read meanwhile
+    behind = {}
+    for body in ("kernels", "torch", "kernels", "torch"):
+        fn = getattr(streamed, f"_batch_body_"
+                     f"{'kernels' if body == 'kernels' else 'plain'}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calls, mhz = sm_clocks(lambda: fn(*args(True, 0.0)), 2.0)
+        k3_ms, n_k3 = k3_per_launch_ms(prof)
+        behind.setdefault(body, []).append(
+            {"k3_ms": k3_ms, "k3_launches": n_k3, "batches": calls,
+             "sm_mhz_median": statistics.median(mhz) if mhz else None,
+             "sm_mhz_min": min(mhz) if mhz else None,
+             "sm_mhz_max": max(mhz) if mhz else None,
+             "sm_readings": len(mhz)})
+        r = behind[body][-1]
+        print(f"  K3 behind the {body} chain: {us(k3_ms)} per launch over "
+              f"{n_k3} launches ({calls} batches); SM clock median "
+              f"{r['sm_mhz_median']} MHz, {r['sm_mhz_min']}-"
+              f"{r['sm_mhz_max']} over {len(mhz)} readings ({card})")
+    entries[1]["k3_behind_chain"] = behind
+    return entries
 
 
 # -- the courtyard loop of tests/test_pipeline_lc.py (copied: no jax here) ---
@@ -3440,8 +3728,9 @@ def entry_hook_run(card: str) -> dict:
     return out
 
 
-NEW_PATHS = ("entry", "lio", "ndt", "vgicp", "threaded", "k4", "recorded",
-             "memcheck", "loc", "hard", "graph", "multilap", "mesh")
+NEW_PATHS = ("chain", "entry", "lio", "ndt", "vgicp", "threaded", "k4",
+             "recorded", "memcheck", "loc", "hard", "graph", "multilap",
+             "mesh")
 
 
 def new_paths(which, streams, card: str, full=None):
@@ -3522,6 +3811,12 @@ def main() -> int:
                                         n_scans=args.stream_scans, seed=0,
                                         n_az=1800, n_el=16)
         new_paths(which, streams, card)
+        if "chain" in which:
+            _, full_sys, full_res = streamed_run(
+                "streamed full (bench full config)", BENCH_FULL, streams,
+                card, prewarm=True, probe_scans=0)
+            print(json.dumps({"kernels": pose_chain_kernels(
+                full_sys, streams, full_res, card)}, default=str))
         if "mesh" in which:
             mesh_paths(card)
         print(f"--only {args.only}: passed, no result line")
@@ -3555,6 +3850,7 @@ def main() -> int:
           f"{be.n_skipped_noop_solves}")
     main_errs, main_t, main_bd = main_path_kernels(full_sys, streams, full_res,
                                                    card, tally)
+    chain_kern = pose_chain_kernels(full_sys, streams, full_res, card)
     tally.check()
     new, k4_entry, k3_targets = new_paths(set(NEW_PATHS) - {"entry"},
                                           streams, card, (full_sys, full_res))
@@ -3645,6 +3941,14 @@ def main() -> int:
                               "ms_table": held["ms"]["k4_table"],
                               "max_abs_err": held["max_abs_err"]["k4"]}
     kern.append(k4_entry)
+    # the streamed executor's chain kernels: launches on every path (the
+    # streamed paths' batches and registered scans, 0 elsewhere)
+    kern[2]["device_ms_behind_chain"] = chain_kern[1].pop("k3_behind_chain")
+    for k in chain_kern:
+        k["launches"] = by_path["streamed_full"][k["name"]]
+        k["launches_by_path"] = {p: c.get(k["name"], 0)
+                                 for p, c in by_path.items()}
+    kern.extend(chain_kern)
     print(json.dumps({"kernels": kern}))
     print(card)
     print(json.dumps({"ok": True, "device": {

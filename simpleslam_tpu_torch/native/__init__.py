@@ -344,10 +344,11 @@ def ekf_replay_chunk(x: np.ndarray, P: np.ndarray, flags: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# the LOAM kernels' host-testable headers, compiled for the host: the GN
-# loop's small step (csrc/gn_step.h), its candidate index math
-# (csrc/target_gather.h), the selection (csrc/select5.h) and the layout and
-# fixed-order sums of K1, K2 and K3 (csrc/fixed_sums.h)
+# the kernels' host-testable headers, compiled for the host: the GN loop's
+# small step (csrc/gn_step.h), its candidate index math
+# (csrc/target_gather.h), the selection (csrc/select5.h), the layout and
+# fixed-order sums of K1, K2 and K3 (csrc/fixed_sums.h) and the streamed
+# executor's pose chain (csrc/pose_chain.h)
 # ---------------------------------------------------------------------------
 
 GN_SRC = os.path.join(_PKG, "csrc", "gn_step_host.cpp")
@@ -358,6 +359,8 @@ S5_HEADER = os.path.join(_PKG, "csrc", "select5.h")
 TG_HEADER = os.path.join(_PKG, "csrc", "target_gather.h")
 FS_SRC = os.path.join(_PKG, "csrc", "fixed_sums_host.cpp")
 FS_HEADER = os.path.join(_PKG, "csrc", "fixed_sums.h")
+PC_SRC = os.path.join(_PKG, "csrc", "pose_chain_host.cpp")
+PC_HEADER = os.path.join(_PKG, "csrc", "pose_chain.h")
 _kernel_libs: dict = {}
 
 
@@ -567,3 +570,79 @@ def k2_host(centroid: np.ndarray, normal: np.ndarray, ok: np.ndarray,
     if err:
         raise ValueError(f"k2_host: a grid of {grid} blocks")
     return jtj.reshape(6, 6), jte, int(nv[0])
+
+
+def bind_pose_chain(lib: ctypes.CDLL) -> None:
+    """The C signatures of ``pose_chain_dequant`` and ``pose_chain_step``,
+    which the host build of ``csrc/pose_chain.h`` and the CUDA library
+    (``ops/_build.py``) both export."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pose_chain_dequant.restype = ci
+    lib.pose_chain_dequant.argtypes = [vp, ci, cf, ci, cf, vp, vp, vp, vp,
+                                       vp, vp, cf, vp, vp, vp]
+    lib.pose_chain_step.restype = ci
+    lib.pose_chain_step.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, cf, cf,
+                                    cf, vp, vp, vp]
+
+
+def _pc_load() -> ctypes.CDLL:
+    return _kernel_host_lib("posechain", PC_SRC, PC_HEADER, bind_pose_chain)
+
+
+def _ptr(a: Optional[np.ndarray]):
+    return None if a is None else a.ctypes.data
+
+
+def pose_chain_dequant(rows: np.ndarray, pose_prev: np.ndarray,
+                       pose_prev2: np.ndarray, odom2map: np.ndarray,
+                       local0: Optional[np.ndarray], scale: float, pad: int,
+                       pad_coord: float, step_cap: float):
+    """The kernel ``scan_dequant`` of ``csrc/pose_chain.h`` on the host:
+    ``rows`` (..., 3) int16 to (xyz (..., 3) f32, mask (...) bool), the
+    pose state (prev, prev2, odom2map) as a (3, 4, 4) f32 array, and scan
+    0's predicted start (4, 4) (lio where ``local0`` is given)."""
+    lib = _pc_load()
+    rows = np.ascontiguousarray(rows, dtype=np.int16)
+    n = rows.size // 3
+    poses = [_f32c(p).reshape(16) for p in (pose_prev, pose_prev2, odom2map)]
+    local0 = None if local0 is None else _f32c(local0).reshape(16)
+    xyz = np.empty((n, 3), np.float32)
+    mask = np.empty(n, np.uint8)
+    state = np.empty(48, np.float32)
+    init0 = np.empty(16, np.float32)
+    err = lib.pose_chain_dequant(
+        _ptr(rows), n, ctypes.c_float(scale), int(pad),
+        ctypes.c_float(pad_coord), _ptr(xyz), _ptr(mask), *map(_ptr, poses),
+        _ptr(local0), ctypes.c_float(step_cap), _ptr(state), _ptr(init0),
+        None)
+    if err:
+        raise ValueError("pose_chain_dequant: no point to dequantize")
+    return (xyz.reshape(rows.shape), mask.astype(bool).reshape(rows.shape[:-1]),
+            state.reshape(3, 4, 4), init0.reshape(4, 4))
+
+
+def pose_chain_step(reg: np.ndarray, fit: Optional[float], init: np.ndarray,
+                    state: np.ndarray, local: Optional[np.ndarray],
+                    local_next: Optional[np.ndarray], clamp: bool,
+                    jump_cap: float, step_cap: float, has_next: bool):
+    """The kernel ``pose_step`` of ``csrc/pose_chain.h`` on the host, one
+    scan after its registration ``reg`` (20 floats in K3's row layout):
+    (packed row (21,), the new state (3, 4, 4), the next scan's predicted
+    start (4, 4), or None where ``has_next`` is false)."""
+    lib = _pc_load()
+    reg = _f32c(reg).reshape(20)
+    fit = None if fit is None else np.array([fit], np.float32)
+    init = _f32c(init).reshape(16)
+    state = _f32c(state).reshape(48).copy()
+    local = None if local is None else _f32c(local).reshape(16)
+    local_next = (None if local_next is None
+                  else _f32c(local_next).reshape(16))
+    packed = np.empty(21, np.float32)
+    init_next = np.empty(16, np.float32) if has_next else None
+    lib.pose_chain_step(
+        _ptr(reg), _ptr(fit), _ptr(init), _ptr(state), _ptr(local),
+        _ptr(local_next), int(bool(clamp)), int(jump_cap > 0),
+        ctypes.c_float(jump_cap), ctypes.c_float(jump_cap / 3.0),
+        ctypes.c_float(step_cap), _ptr(packed), _ptr(init_next), None)
+    return (packed, state.reshape(3, 4, 4),
+            None if init_next is None else init_next.reshape(4, 4))

@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Optional
 
+from .. import native
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
@@ -93,6 +95,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         vp, ci, vp, vp, ci, vp, vp, vp, vp, ci, vp, ci, ctypes.c_float, vp,
         vp, vp, vp]
     lib.loam_gn_loop_table.restype = ci
+    native.bind_pose_chain(lib)
     lib.loam_empty.argtypes = [vp]
     lib.loam_empty.restype = ci
     lib.loam_barrier_probe.argtypes = [vp, ci, vp]

@@ -336,6 +336,22 @@ def gn_loop_stepwise(src: PointCloud, vm: Target,
                       n_valid, counts[1])
 
 
+def gn_loop_row(src: PointCloud, vm: Target, init_pose: torch.Tensor,
+                max_iters: int = MAX_ITERS,
+                degen_per_row: float = 0.0) -> torch.Tensor:
+    """The full GN loop on CUDA tensors as one launch of K3
+    (``loam_kernels.gn_loop_fused``): its (GN_ROW,) f32 result row on the
+    device, the pose (4x4 row-major) and then the converged flag, the
+    iterations, the K1 phases and the final row count at
+    ``loam_kernels.GN_*``. ``gn_loop`` unpacks it; the streamed batch body
+    hands it to its chain kernel as it is."""
+    from . import loam_kernels as lk
+
+    return lk.gn_loop_fused(src.xyz, src.mask, vm,
+                            init_pose.to(torch.float32).contiguous(),
+                            max_iters, degen_per_row)
+
+
 def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
             max_iters: int = MAX_ITERS, degen_per_row: float = 0.0,
             reduce_fn=None, rmax_reduce_fn=None) -> LoamResult:
@@ -354,9 +370,7 @@ def gn_loop(src: PointCloud, vm: Target, init_pose: torch.Tensor,
                                 reduce_fn, rmax_reduce_fn)
     from . import loam_kernels as lk
 
-    row = lk.gn_loop_fused(src.xyz, src.mask, vm,
-                           init_pose.to(torch.float32).contiguous(),
-                           max_iters, degen_per_row)
+    row = gn_loop_row(src, vm, init_pose, max_iters, degen_per_row)
     counts = row.to(torch.int32)
     return LoamResult(row[:16].view(4, 4), row[lk.GN_CONVERGED] > 0.5,
                       counts[lk.GN_ITERS], counts[lk.GN_N_VALID],

@@ -38,6 +38,16 @@ The kernels replace the Pallas TPU kernel
   every candidate of a valid query and 12 bytes of coordinates for every
   candidate whose flag is set.
 
+Beside them, the streamed executor's pose chain around K3
+(``csrc/pose_chain.cu``, ``pipeline/streamed.py::_batch_body`` on CUDA
+tensors), which replaces no TPU kernel: ``scan_dequant``, one launch per
+batch (the int16 upload to the registrations' queries, and scan 0's
+prediction), and ``pose_step``, one launch per scan after its
+registration (the planar clamp, the guards, the packed row and the next
+scan's prediction). Their plain version is the torch chain of
+``_batch_body``, which runs on CPU tensors; ``native.pose_chain_dequant``
+and ``native.pose_chain_step`` run their code on the host.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built at first use) or raises. Nothing falls back.
 The counters count kernel launches, and plain-version calls on CUDA tensors
@@ -47,6 +57,7 @@ The counters count kernel launches, and plain-version calls on CUDA tensors
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -66,6 +77,8 @@ K4_PLAIN_CUDA_CALLS = 0
 # the sharded path's stepwise loops on CUDA (loam.gn_loop_stepwise with a
 # cross-rank reduction): their K1, K2 and K4 launches are that path's own
 SHARDED_STEPWISE_CALLS = 0
+DEQUANT_LAUNCHES = 0      # scan_dequant: one per streamed batch on CUDA
+STEP_LAUNCHES = 0         # pose_step: one per scan of such a batch
 
 # K3's result row: the pose (4x4 row-major), then these
 GN_ROW = 20
@@ -75,9 +88,11 @@ def reset_counts() -> None:
     global K1_LAUNCHES, K2_LAUNCHES, K3_LAUNCHES, K4_LAUNCHES
     global K1_PLAIN_CUDA_CALLS, K2_PLAIN_CUDA_CALLS, K3_PLAIN_CUDA_CALLS
     global K4_PLAIN_CUDA_CALLS, SHARDED_STEPWISE_CALLS
+    global DEQUANT_LAUNCHES, STEP_LAUNCHES
     K1_LAUNCHES = K2_LAUNCHES = K3_LAUNCHES = K4_LAUNCHES = 0
     K1_PLAIN_CUDA_CALLS = K2_PLAIN_CUDA_CALLS = K3_PLAIN_CUDA_CALLS = 0
     K4_PLAIN_CUDA_CALLS = SHARDED_STEPWISE_CALLS = 0
+    DEQUANT_LAUNCHES = STEP_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -455,6 +470,113 @@ def gn_loop_fused(xyz: torch.Tensor, mask: torch.Tensor, vm,
     _raise_on(err, "gn_loop_fused")
     K3_LAUNCHES += 1
     return out
+
+
+class PoseChain(NamedTuple):
+    """One streamed batch's device buffers for ``scan_dequant`` and
+    ``pose_step``: views of one allocation, made by ``scan_dequant``."""
+    xyz: torch.Tensor       # (K, C, 3) f32: each scan's queries in metres
+    mask: torch.Tensor      # (K, C) bool: their validity
+    init: torch.Tensor      # (K, 4, 4) f32: each scan's predicted start
+    state: torch.Tensor     # (3, 4, 4) f32: prev, prev2, odom2map
+    packed: torch.Tensor    # (K, 21) f32: the batch's packed rows
+    local: Optional[torch.Tensor]   # (K, 4, 4) f32 local odometry (lio)
+    stream: int
+
+
+def scan_dequant(rows: torch.Tensor, pose_prev: torch.Tensor,
+                 pose_prev2: torch.Tensor, odom2map: torch.Tensor,
+                 local_odoms: Optional[torch.Tensor], scale: float, pad: int,
+                 pad_coord: float, step_cap: float) -> PoseChain:
+    """The first chain launch of a streamed batch: the (K, C, 3) int16
+    ``rows`` to f32 queries (``scale`` metres a count; ``pad_coord`` and
+    invalid where x holds ``pad``), the pose state (each (4, 4) f32) into
+    the batch's buffer, and scan 0's predicted start (lio: ``odom2map``
+    composed with ``local_odoms[0]``; lo: the last step, its translation
+    cut to ``step_cap``). CUDA tensors only: the plain version is the torch
+    chain of ``pipeline/streamed.py``."""
+    global DEQUANT_LAUNCHES
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"scan_dequant: unsupported device {dev}")
+    from ._build import library
+
+    lib = library()
+    if rows.dim() != 3 or rows.shape[0] < 1 or rows.shape[1] < 1:
+        raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
+                         "(K, C, 3) with K, C >= 1")
+    n_scans, n_pts = rows.shape[0], rows.shape[1]
+    _check("rows", rows, torch.int16, (n_scans, n_pts, 3), dev)
+    for name, t in (("pose_prev", pose_prev), ("pose_prev2", pose_prev2),
+                    ("odom2map", odom2map)):
+        _check(name, t, torch.float32, (4, 4), dev)
+    if local_odoms is not None:
+        _check("local_odoms", local_odoms, torch.float32, (n_scans, 4, 4),
+               dev)
+    n_q = n_scans * n_pts
+    o_init = 3 * n_q
+    o_state = o_init + 16 * n_scans
+    o_packed = o_state + 48
+    n_f = o_packed + 21 * n_scans
+    buf = torch.empty((4 * n_f + n_q,), dtype=torch.uint8, device=dev)
+    f = buf[:4 * n_f].view(torch.float32)
+    with torch.cuda.device(dev):
+        chain = PoseChain(
+            f[:o_init].view(n_scans, n_pts, 3),
+            buf[4 * n_f:].view(torch.bool).view(n_scans, n_pts),
+            f[o_init:o_state].view(n_scans, 4, 4),
+            f[o_state:o_packed].view(3, 4, 4),
+            f[o_packed:].view(n_scans, 21), local_odoms, _stream(dev))
+        err = lib.pose_chain_dequant(
+            rows.data_ptr(), n_q, float(scale), int(pad), float(pad_coord),
+            chain.xyz.data_ptr(), chain.mask.data_ptr(), pose_prev.data_ptr(),
+            pose_prev2.data_ptr(), odom2map.data_ptr(),
+            local_odoms.data_ptr() if local_odoms is not None else None,
+            float(step_cap), chain.state.data_ptr(), chain.init.data_ptr(),
+            chain.stream)
+    _raise_on(err, "scan_dequant")
+    DEQUANT_LAUNCHES += 1
+    return chain
+
+
+def pose_step(chain: PoseChain, k: int, reg: torch.Tensor,
+              fit: Optional[torch.Tensor], clamp: bool, jump_cap: float,
+              step_cap: float) -> None:
+    """Scan ``k``'s chain launch after its registration ``reg`` (a (GN_ROW,)
+    f32 row in K3's layout) with fitness ``fit`` ((1,) f32, or None for
+    0): the planar clamp where ``clamp``, the NaN guard, the jump guard
+    where ``jump_cap`` > 0 (a move from the start above ``jump_cap``, or
+    above a third of it unconverged, keeps the start), lio's odom2map
+    update, row ``k`` of ``chain.packed``, the state shift and scan
+    ``k + 1``'s predicted start."""
+    global STEP_LAUNCHES
+    dev = reg.device
+    if dev.type != "cuda":
+        raise ValueError(f"pose_step: unsupported device {dev}")
+    from ._build import library
+
+    lib = library()
+    n_scans = chain.packed.shape[0]
+    if not 0 <= k < n_scans:
+        raise ValueError(f"pose_step: scan {k} of a batch of {n_scans}")
+    _check("reg", reg, torch.float32, (GN_ROW,), dev)
+    if fit is not None:
+        _check("fit", fit, torch.float32, (1,), dev)
+    init = chain.init.data_ptr()
+    local = chain.local.data_ptr() if chain.local is not None else None
+    nxt = k + 1 < n_scans
+    with torch.cuda.device(dev):
+        err = lib.pose_chain_step(
+            reg.data_ptr(), fit.data_ptr() if fit is not None else None,
+            init + 64 * k, chain.state.data_ptr(),
+            local + 64 * k if local is not None else None,
+            local + 64 * (k + 1) if local is not None and nxt else None,
+            int(bool(clamp)), int(jump_cap > 0), float(jump_cap),
+            float(jump_cap / 3.0), float(step_cap),
+            chain.packed.data_ptr() + 84 * k,
+            init + 64 * (k + 1) if nxt else None, chain.stream)
+    _raise_on(err, "pose_step")
+    STEP_LAUNCHES += 1
 
 
 def barrier_probe(dev: torch.device, n: int) -> None:

@@ -17,8 +17,10 @@ device):
   VGICP: their fixed-count loops), the planar clamp and the NaN guard, with
   no host read in between and the pose chain
   (``pose_prev``, ``pose_prev2``, ``odom2map``) kept in device tensors that
-  feed the next batch directly. The batch's packed (K, 21) result rows are
-  read back once, when the batch retires;
+  feed the next batch directly; on CUDA the chain around the registrations
+  is two hand kernels (``csrc/pose_chain.cu``: one launch per batch, one
+  per scan). The batch's packed (K, 21) result rows are read back once,
+  when the batch retires;
 - lio mode fuses the wheel+IMU tape on the host in 4096-event chunks, just
   far enough ahead of each batch (``_LocalOdomFeeder``), and uploads the
   batch's (K, 4, 4) local odometry with its scans;
@@ -63,6 +65,8 @@ from ..models import filter as flt
 from ..models.mapmanager import KeyFrame, KFEvent
 from ..models.registration import register_kind
 from ..ops import geometry as geo
+from ..ops import loam as loam_ops
+from ..ops import loam_kernels as lk
 from ..ops.pointcloud import PAD_COORD, PointCloud
 from ..utils import tictoc
 from ..utils.config import Params
@@ -92,6 +96,49 @@ def upload_cloud(raw_q: torch.Tensor) -> PointCloud:
     return PointCloud(raw, torch.zeros_like(raw[:, 0]), mask)
 
 
+def _predict(prev: torch.Tensor, prev2: torch.Tensor, o2m: torch.Tensor,
+             local: Optional[torch.Tensor]) -> torch.Tensor:
+    """A scan's predicted start from the chain before it."""
+    if local is not None:
+        # loose coupling: predict through odom2map (LidarOdometry.cpp:129)
+        return geo.pose_compose(o2m, local)
+    # constant-velocity prediction with the extrapolated per-scan
+    # translation capped unconditionally: once two chain poses disagree by
+    # D, uncapped extrapolation re-applies D every scan (measured in the
+    # reference package: a 3 m disagreement grew to 1e33 m within ~40
+    # keyframes); no sensor moves 5 m between 10 Hz scans
+    step = geo.pose_compose(geo.pose_inverse(prev2), prev)
+    st_t = step[:3, 3]
+    scale = torch.clamp(
+        STEP_CAP / torch.clamp(torch.linalg.norm(st_t), min=1e-9), max=1.0)
+    step = geo.make_pose(step[:3, :3], st_t * scale)
+    return geo.pose_compose(prev, step)
+
+
+def _chain(pose, init, conv, fit, iters, gathers, support, o2m,
+           clamp: bool, jump_cap: float, local: Optional[torch.Tensor]):
+    """Everything after one registration: (the scan's pose, odom2map, its
+    packed row [pose16, converged, fitness, gn_iters, gn_gathers,
+    n_valid])."""
+    if clamp:  # planar clamp each frame (frontend.planar_clamp)
+        pose = geo.six_dof_to_mobile(pose)
+    # NaN safety is unconditional (one non-finite pose poisons the chain);
+    # the jump rejection is opt-in (tpu.max_scan_jump_m), since rejecting
+    # measured worse than using results as-is
+    ok = torch.all(torch.isfinite(pose))
+    if jump_cap > 0:
+        jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
+        ok = ok & (jump <= torch.where(conv, jump_cap, jump_cap / 3.0))
+    pose = torch.where(ok, pose, init)
+    if local is not None:
+        # odom2map update (LidarOdometry.cpp:238)
+        o2m = geo.pose_compose(pose, geo.pose_inverse(local))
+    tail = torch.stack([(ok & conv).to(torch.float32), fit.to(torch.float32),
+                        iters.to(torch.float32), gathers.to(torch.float32),
+                        support.to(torch.float32)])
+    return pose, o2m, torch.cat([pose.reshape(16), tail])
+
+
 def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
                 pose_prev2: torch.Tensor, odom2map: torch.Tensor, kind: str,
                 clamp: bool, degen: float, jump_cap: float = 0.0,
@@ -111,64 +158,93 @@ def _batch_body(ds_stack: torch.Tensor, target, pose_prev: torch.Tensor,
     through in lo mode.
 
     Nothing in here reads a value from the device: every decision (the NaN
-    guard, the jump rejection) is a ``torch.where``, so on the GPU the K
-    registrations queue up behind each other and the batch's one host read
-    is that of its packed rows when it retires.
+    guard, the jump rejection) is a ``torch.where`` or a kernel's branch,
+    so on the GPU the K registrations queue up behind each other and the
+    batch's one host read is that of its packed rows when it retires.
 
-    Each scan's steps are spans of the run's timers (``tictoc.span``):
-    ``predict`` (the upload's dequantization and the prediction),
-    ``register`` and ``chain`` (the clamp, the guards and the row).
+    On CUDA tensors the chain around the registrations runs in the hand
+    kernels of ``csrc/pose_chain.cu`` (``loam_kernels.scan_dequant`` once
+    for the batch, ``loam_kernels.pose_step`` once per scan), and an
+    unsharded LOAM register is one launch of K3 whose result row
+    ``pose_step`` reads as it is; on CPU tensors it runs in torch
+    (``_batch_body_plain``, the kernels' plain version).
+
+    The steps are spans of the run's timers (``tictoc.span``): ``predict``
+    (the upload's dequantization and the prediction: once per batch on
+    CUDA, per scan on the CPU), and per scan ``register`` and ``chain``
+    (the clamp, the guards and the row).
     """
+    run = _batch_body_kernels if ds_stack.is_cuda else _batch_body_plain
+    return run(ds_stack, target, pose_prev, pose_prev2, odom2map, kind,
+               clamp, degen, jump_cap, local_odoms, reduce_fn,
+               rmax_reduce_fn, axis_reduce)
+
+
+def _batch_body_plain(ds_stack, target, pose_prev, pose_prev2, odom2map,
+                      kind, clamp, degen, jump_cap, local_odoms, reduce_fn,
+                      rmax_reduce_fn, axis_reduce):
+    """``_batch_body`` in torch ops, on any device."""
     rows = []
     prev, prev2, o2m = pose_prev, pose_prev2, odom2map
     for k, raw_q in enumerate(ds_stack):
+        local = local_odoms[k] if local_odoms is not None else None
         with tictoc.span("predict"):
             pc = upload_cloud(raw_q)
-            if local_odoms is not None:
-                # loose coupling: predict through odom2map
-                # (LidarOdometry.cpp:129)
-                init = geo.pose_compose(o2m, local_odoms[k])
-            else:
-                # constant-velocity prediction with the extrapolated
-                # per-scan translation capped unconditionally: once two
-                # chain poses disagree by D, uncapped extrapolation
-                # re-applies D every scan (measured in the reference
-                # package: a 3 m disagreement grew to 1e33 m within ~40
-                # keyframes); no sensor moves 5 m between 10 Hz scans
-                step = geo.pose_compose(geo.pose_inverse(prev2), prev)
-                st_t = step[:3, 3]
-                scale = torch.clamp(
-                    STEP_CAP / torch.clamp(torch.linalg.norm(st_t),
-                                           min=1e-9),
-                    max=1.0)
-                step = geo.make_pose(step[:3, :3], st_t * scale)
-                init = geo.pose_compose(prev, step)
+            init = _predict(prev, prev2, o2m, local)
         with tictoc.span("register"):
             pose, conv, fit, iters, gathers, support = register_kind(
                 pc, target, init, kind, degen, reduce_fn, rmax_reduce_fn,
                 axis_reduce)
         with tictoc.span("chain"):
-            if clamp:  # planar clamp each frame (frontend.planar_clamp)
-                pose = geo.six_dof_to_mobile(pose)
-            # NaN safety is unconditional (one non-finite pose poisons the
-            # chain); the jump rejection is opt-in (tpu.max_scan_jump_m),
-            # since rejecting measured worse than using results as-is
-            ok = torch.all(torch.isfinite(pose))
-            if jump_cap > 0:
-                jump = torch.linalg.norm(pose[:3, 3] - init[:3, 3])
-                ok = ok & (jump <= torch.where(conv, jump_cap,
-                                               jump_cap / 3.0))
-            pose = torch.where(ok, pose, init)
-            if local_odoms is not None:
-                # odom2map update (LidarOdometry.cpp:238)
-                o2m = geo.pose_compose(pose, geo.pose_inverse(local_odoms[k]))
-            tail = torch.stack([(ok & conv).to(torch.float32),
-                                fit.to(torch.float32), iters.to(torch.float32),
-                                gathers.to(torch.float32),
-                                support.to(torch.float32)])
-            rows.append(torch.cat([pose.reshape(16), tail]))
+            pose, o2m, row = _chain(pose, init, conv, fit, iters, gathers,
+                                    support, o2m, clamp, jump_cap, local)
+            rows.append(row)
         prev2, prev = prev, pose
     return (prev, prev2, o2m), torch.stack(rows)
+
+
+def _register_row(ds: PointCloud, target, init: torch.Tensor, kind: str,
+                  degen: float, reduce_fn, rmax_reduce_fn, axis_reduce):
+    """One registration as the chain kernel reads it: a (GN_ROW,) f32 row
+    in K3's layout (the pose 4x4 row-major, then converged, iterations,
+    gathers and support at ``loam_kernels.GN_*``) and the fitness as a
+    (1,) f32 tensor, or None where it is 0. An unsharded LOAM register is
+    K3's own row (``loam.gn_loop_row``), with no op around the launch;
+    every other register packs ``register_kind``'s tuple."""
+    if kind == "loam" and reduce_fn is None:
+        return loam_ops.gn_loop_row(ds, target, init,
+                                    degen_per_row=degen), None
+    pose, conv, fit, iters, gathers, support = register_kind(
+        ds, target, init, kind, degen, reduce_fn, rmax_reduce_fn,
+        axis_reduce)
+    tail = [None] * (lk.GN_ROW - 16)
+    for i, t in ((lk.GN_CONVERGED, conv), (lk.GN_ITERS, iters),
+                 (lk.GN_GATHERS, gathers), (lk.GN_N_VALID, support)):
+        tail[i - 16] = t.to(torch.float32)
+    row = torch.cat([pose.reshape(16).to(torch.float32), torch.stack(tail)])
+    return row, fit.to(torch.float32).reshape(1)
+
+
+def _batch_body_kernels(ds_stack, target, pose_prev, pose_prev2, odom2map,
+                        kind, clamp, degen, jump_cap, local_odoms, reduce_fn,
+                        rmax_reduce_fn, axis_reduce):
+    """``_batch_body`` on CUDA tensors: the chain in the hand kernels."""
+    with tictoc.span("predict"):
+        chain = lk.scan_dequant(ds_stack, pose_prev, pose_prev2, odom2map,
+                                local_odoms, UPLOAD_SCALE, UPLOAD_PAD,
+                                PAD_COORD, STEP_CAP)
+        # the queries' intensities, zero as upload_cloud's: one fill a
+        # batch, not one a scan
+        zero = torch.zeros_like(chain.xyz[0, :, 0])
+    for k in range(ds_stack.shape[0]):
+        with tictoc.span("register"):
+            reg, fit = _register_row(
+                PointCloud(chain.xyz[k], zero, chain.mask[k]), target,
+                chain.init[k], kind, degen, reduce_fn, rmax_reduce_fn,
+                axis_reduce)
+        with tictoc.span("chain"):
+            lk.pose_step(chain, k, reg, fit, clamp, jump_cap, STEP_CAP)
+    return tuple(chain.state), chain.packed
 
 
 def make_sharded_batch(mesh, kind: str, mode: str, clamp: bool, degen: float,
@@ -484,7 +560,9 @@ def run_streamed(system: SlamSystem, streams: sim.SensorStreams,
     ``ekf_replay``, ``backend_backpressure`` and ``prep_chunk``. ``dispatch``
     and ``backend`` also book their thread's CPU time. Its ``counters`` hold
     each registration's GN iterations (``gn_iters``) and K1 phases
-    (``k1_phases``).
+    (``k1_phases``), and for each scan 1.0 where its prediction and chain
+    ran in the hand kernels of ``csrc/pose_chain.cu``, 0.0 where in torch
+    (``chain_kernel``).
 
     With ``SIMPLESLAM_DEBUG_SUPPORT`` set in the environment, every retired
     scan prints its support, converged flag, iterations and position.
@@ -702,6 +780,8 @@ def _run_streamed(system: SlamSystem, streams: sim.SensorStreams,
             stats["gn_gathers"] += float(np.sum(stacked[:nb, 19]))
             timers.tally("gn_iters", stacked[:nb, 18])
             timers.tally("k1_phases", stacked[:nb, 19])
+            # a batch on CUDA ran its chain in the hand kernels
+            timers.tally("chain_kernel", np.full(nb, float(packed.is_cuda)))
             sup = stacked[:nb, 20]
             stats["support_sum"] += float(np.sum(sup))
             stats["support_min"] = min(stats["support_min"],
@@ -825,7 +905,15 @@ def _run_streamed(system: SlamSystem, streams: sim.SensorStreams,
 
         pending = deque()
         while si < n_scans or pending:
-            if si < n_scans and not _backlogged():
+            if si < n_scans and _backlogged():
+                # the next dispatch waits, and nothing retires early: the
+                # dispatches and retires keep the order the data gives them,
+                # so a map rebuild set off at a retire is committed at the
+                # same batch whatever the worker's pace
+                with timers.span("backend_backpressure"):
+                    worker.wait_progress(timeout=0.05)
+                continue
+            if si < n_scans:
                 # corrections reach the chain before more scans register
                 if worker is not None:
                     for delta_, kfc_ in worker.drain():
@@ -835,15 +923,11 @@ def _run_streamed(system: SlamSystem, streams: sim.SensorStreams,
                     si, pose_prev, pose_prev2, odom2map)
                 si = batch[-1] + 1
                 pending.append([batch, packed, np.eye(4)])
-            if pending and (len(pending) >= depth or si >= n_scans
-                            or _backlogged()):
+            if pending and (len(pending) >= depth or si >= n_scans):
                 done = pending.popleft()
                 retire(done[0], done[1], done[2])
                 if progress:
                     lg.info("scan %d/%d", done[0][-1] + 1, n_scans)
-            elif _backlogged() and not pending and si < n_scans:
-                with timers.span("backend_backpressure"):
-                    worker.wait_progress(timeout=0.05)
     except BaseException:
         if worker is not None:
             worker._stop = True  # it exits at its next idle wait

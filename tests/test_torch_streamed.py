@@ -146,6 +146,58 @@ def test_backend_worker_error_surfaces():
     assert isinstance(err.value.__cause__, ValueError)
 
 
+def test_backpressure_keeps_the_map_schedule(monkeypatch):
+    """Backpressure on the backend worker delays the next dispatch and
+    retires nothing early: with the worker's first solve held until a
+    one-keyframe backlog has stopped the loop, each dispatch commits a map
+    rebuild exactly where it does beside a worker that is never held, and
+    the poses are the same."""
+    import threading
+
+    world = sim.make_world(seed=3)
+    streams = sim.cache_streams(
+        "str30det3", lambda: sim.simulate_sequence(world, n_scans=30, seed=3))
+    waited = threading.Event()
+    wait_progress = tst._BackendWorker.wait_progress
+
+    def waiting(self, timeout):
+        waited.set()
+        return wait_progress(self, timeout)
+
+    monkeypatch.setattr(tst._BackendWorker, "wait_progress", waiting)
+
+    def once(hold):
+        cfg = _cfg({"enable": True, "lc": {"enable": False}},
+                   tpu={"scan_capacity": 16384, "backend_max_backlog_kf": 1})
+        system = _port(cfg)
+        mm, be = system.map_manager, system.backend
+        commits, commit, solve = [], mm.commit_pending_target, be.optim_once
+
+        def recording_commit():
+            commits.append(commit())
+            return commits[-1]
+
+        def held_solve(*args, **kwargs):
+            if hold:   # the first solve waits for the loop to be held
+                assert waited.wait(timeout=120)
+            return solve(*args, **kwargs)
+
+        mm.commit_pending_target = recording_commit
+        be.optim_once = held_solve
+        r = tst.run_streamed(system, streams, sync_every=4)
+        TParams.reset()
+        return commits, r
+
+    fast, r_fast = once(False)
+    waited.clear()
+    slow, r_slow = once(True)
+    assert waited.is_set()
+    assert r_slow.timers.count["backend_backpressure"] > 0
+    assert any(slow) and slow == fast
+    assert r_slow.extras["n_deltas"] == r_fast.extras["n_deltas"] == 0
+    np.testing.assert_array_equal(r_slow.poses, r_fast.poses)
+
+
 @pytest.mark.parametrize("jump_cap", [0.0, 1.0], ids=["no_jump_cap",
                                                     "jump_cap"])
 def test_velocity_step_cap_bounds_runaway_chain(jump_cap):
